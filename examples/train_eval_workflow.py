@@ -50,8 +50,8 @@ def main():
         f.write(codegen.generate(reloaded, "condop"))
     print("saved /tmp/model.xml and /tmp/model.cc")
 
-    # 5. Batch scoring (dispatches to the Pallas kernel on TPU).  Pass a
-    #    device mesh to fan doc rows out over every chip:
+    # 5. Batch scoring (QS bitvector tables for best-first trees).  Pass a
+    #    device mesh to fan doc rows out over every device:
     #    scores = reloaded.score_dataset(test, mesh=make_mesh())
     scores = reloaded.score_dataset(test)
     print("scored", len(scores), "docs; top:", scores.max())

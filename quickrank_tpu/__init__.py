@@ -1,9 +1,10 @@
-"""quickrank_tpu — a TPU-native learning-to-rank framework.
+"""quickrank_tpu — a learning-to-rank framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-hpclab/quickrank (gradient-boosted tree rankers, linear rankers, IR metrics,
-ensemble post-optimization, model codegen), built for SPMD execution over
-TPU device meshes.  See README.md / PARITY.md / BENCHMARKS.md.
+A from-scratch JAX/XLA re-design of the capabilities of hpclab/quickrank
+(gradient-boosted tree rankers, linear rankers, IR metrics, ensemble
+post-optimization, model codegen), built for SPMD execution over device
+meshes; its accelerator is an NVIDIA H100.  See README.md / PARITY.md /
+PERF.md.
 
 Quick start::
 

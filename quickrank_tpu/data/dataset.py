@@ -10,11 +10,11 @@ Reference counterparts:
     gather map built in :func:`shard_and_pad`, which turns flat doc arrays
     into ``[num_queries_padded, max_docs]`` views with a validity mask.
 
-TPU-first design: docs live in one flat ``[num_docs_padded, num_features]``
+Layout: docs live in one flat ``[num_docs_padded, num_features]``
 array whose leading axis is sharded over the device mesh; queries are
 assigned to shards contiguously so a query never straddles a shard.  The
 ``pad_index`` map is *shard-local*, so inside ``shard_map`` every gather and
-scatter is local — the only cross-chip traffic in training is the histogram
+scatter is local — the only cross-device traffic in training is the histogram
 ``psum`` and metric mean reductions.
 """
 
@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quickrank_tpu.utils import struct
 
 from quickrank_tpu.types import FEATURE_DTYPE, LABEL_DTYPE, QID_DTYPE
 
@@ -220,10 +220,9 @@ def shard_and_pad(
     numpy array — tree training reads only the binned tensor, and skipping
     the f32 transfer matters when the accelerator sits behind a slow link.
 
-    ``doc_align`` defaults to the histogram kernel's doc tile (1024,
-    ops/pallas_histogram.py) so flat device arrays never need a per-call
-    N-axis pad inside the training step (~4 ms per histogram pass at MSLR
-    scale otherwise); the cost is <=1023 zero rows per shard.
+    ``doc_align`` rounds each shard's doc count up (default 1024), so
+    datasets of similar size share compiled programs; the cost is <=1023
+    zero rows per shard.
     """
     if not isinstance(ds, Dataset):
         # every non-Mart-family learner funnels through here: a multi-host
@@ -335,8 +334,7 @@ def gather_unpad(padded_vals, inv_q, inv_slot, doc_mask):
     """Padded [Q, D, ...] per-query values -> flat per-doc array via the
     inverse maps — a pure gather, replacing the sort-based scatter of
     :func:`scatter_flat` on the hot path.  Stack multiple arrays on a
-    trailing axis to amortize the gather (it costs ~15 ms per call at MSLR
-    scale regardless of a small trailing dim)."""
+    trailing axis to amortize the gather."""
     out = padded_vals[inv_q, inv_slot]
     mask = doc_mask.reshape(doc_mask.shape + (1,) * (out.ndim - 1))
     return jnp.where(mask, out, 0).astype(padded_vals.dtype)
@@ -354,9 +352,9 @@ def build_scatter_keys(padded: PaddedDataset) -> np.ndarray:
     shard's block is self-contained, so :func:`scatter_padded` works
     unchanged inside ``shard_map``.
 
-    Rationale: ``flat[pad_index]`` is a doc-axis gather that the TPU
-    serializes (~33 ms at MSLR scale); a one-key ``lax.sort`` applies the
-    same (static) permutation in ~11 ms (see gather_padded's note).
+    Rationale: the training step applies the same (static) permutation
+    every iteration; a one-key ``lax.sort`` replaces the doc-axis gather
+    ``flat[pad_index]`` (not yet timed against it on the GPU).
     """
     S = padded.num_shards
     n_loc = padded.docs_per_shard
@@ -394,8 +392,8 @@ def scatter_padded(
 ):
     """Flat per-doc array -> padded ``[Q, D]`` view via one ``lax.sort`` on
     the precomputed :func:`build_scatter_keys` permutation — bitwise equal
-    to ``gather_padded(flat, pad_index, slot_mask)`` (pad slots 0) but ~3x
-    faster on TPU.  Pass ``doc_mask`` so flat pad rows land as zeros."""
+    to ``gather_padded(flat, pad_index, slot_mask)`` (pad slots 0).  Pass
+    ``doc_mask`` so flat pad rows land as zeros."""
     Q, D = slot_shape
     QD = Q * D
     M = scatter_key.shape[0]
@@ -409,11 +407,9 @@ def scatter_padded(
 def gather_padded(flat: jnp.ndarray, pad_index: jnp.ndarray, slot_mask: jnp.ndarray, fill=0.0):
     """Flat per-doc array -> padded ``[Q, D]`` per-query view (shard-local).
 
-    NOTE: this gather costs ~30 ms per call at MSLR scale on TPU (XLA
-    serializes doc-axis gathers); the training step avoids it on its hot
-    path by carrying the [Q, D] score views across iterations and keeping
-    a precomputed ``labels2d`` in StepData — keep new per-iteration calls
-    off the training loop."""
+    The training step avoids it on its hot path by carrying the [Q, D]
+    score views across iterations and keeping a precomputed ``labels2d``
+    in StepData."""
     out = flat[pad_index]
     return jnp.where(slot_mask, out, jnp.asarray(fill, dtype=out.dtype))
 

@@ -1,6 +1,6 @@
 """Driver — orchestrates training / optimization / testing / codegen.
 
-TPU-native counterpart of ``Driver::run`` (src/driver/driver.cc:45-226) and
+Counterpart of ``Driver::run`` (src/driver/driver.cc:45-226) and
 its phases: build the algorithm (factory, with model-in / restart-train
 handling), load datasets, build metrics, train, run the post-learning
 optimizer, test (with optional scores file and per-tree detailed output),
@@ -95,8 +95,8 @@ def run(params: dict) -> dict:
     from quickrank_tpu.utils.backend import enable_compile_cache
     from quickrank_tpu.utils.profiling import phase_timer, trace
 
-    # persistent jit cache: a second run of the same config starts its
-    # train phase in single-digit seconds instead of 25-45 s/grower
+    # persistent jit cache: a second run of the same config skips the
+    # growers' compiles
     enable_compile_cache()
     p = params
     results: dict = {}

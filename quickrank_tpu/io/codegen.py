@@ -1,6 +1,6 @@
 """Standalone scoring-code generators ("quickscore" path).
 
-TPU-native counterparts of the reference's three model translators:
+Counterparts of the reference's three model translators:
 
   * ``condop`` — nested C conditional operators, one summand per tree
     (src/io/generate_conditional_operators.cc:28-115);
@@ -15,7 +15,7 @@ All generators work directly from the in-memory dense model tensors (no XML
 navigation needed); the emitted artifacts are compatible with the formats
 the reference produces from the same model.
 
-Note: on TPU the in-framework equivalent of these generators is the batched
+Note: the in-framework equivalent of these generators is the batched
 bit-OR scorer (ops/oblivious.py) — codegen exists for exporting models to
 CPU serving stacks.
 """

@@ -1,9 +1,9 @@
-"""AOT scorer export — the TPU-native analog of the C code generators.
+"""AOT scorer export — the analog of the C code generators.
 
 The reference ships rankers to production by generating C source from a
 model and compiling it into the serving binary (src/io/generate_conditional_
 operators.cc, generate_oblivious.cc, generate_vpred.cc; SURVEY §2.2).  The
-TPU-native equivalent is an ahead-of-time compiled artifact: the batched
+equivalent here is an ahead-of-time compiled artifact: the batched
 scorer — model constants embedded — serialized with ``jax.export`` as a
 portable StableHLO module.  A serving process deserializes and calls it
 with only jax installed: no quickrank_tpu, no XML model, no retracing.
@@ -68,13 +68,16 @@ def _model_num_features(model) -> int:
 def _scorer_fn(model) -> Callable:
     """Jittable ``X [N, F] f32 -> scores [N] f32`` with model constants
     closed over (embedded as StableHLO constants at export time)."""
+    import jax
     import jax.numpy as jnp
 
     if _is_linear(model):
         w = jnp.asarray(np.asarray(model.get_weights(), np.float32))
 
+        # full f32 precision: a default f32 product may run in TF32 on
+        # the GPU, and the artifact must score like the model
         def linear(X):
-            return X @ w
+            return jnp.matmul(X, w, precision=jax.lax.Precision.HIGHEST)
 
         return linear
 
@@ -87,16 +90,16 @@ def _scorer_fn(model) -> Callable:
 
         def rankboost(X):
             bits = (X[:, fid] > theta[None, :]).astype(jnp.float32)
-            return bits @ aw
+            return jnp.matmul(bits, aw, precision=jax.lax.Precision.HIGHEST)
 
         return rankboost
 
     from quickrank_tpu.trees.qs import ensemble_to_qs, score_qs
 
     ens = model._require_model()
-    # QS bitvector form: depth-independent (the descent scan cost L levels
-    # per tree and 33 s for a deep 1000-tree model at 131k docs; the QS
-    # scan costs 48 ms), bitwise the compensated descent (tests/test_qs.py)
+    # QS bitvector form: depth-independent (the descent scan pays one
+    # pass per tree level), bitwise the compensated descent
+    # (tests/test_qs.py)
     qs = ensemble_to_qs(ens)
 
     def trees(X):
@@ -110,7 +113,7 @@ def export_scorer(
     path: Optional[str] = None,
     num_features: Optional[int] = None,
     batch: Optional[int] = None,
-    platforms: Optional[Sequence[str]] = ("cpu", "tpu"),
+    platforms: Optional[Sequence[str]] = ("cpu", "cuda"),
 ) -> bytes:
     """Serialize the model's batched scorer as a StableHLO artifact.
 

@@ -1,6 +1,6 @@
 """Abstract learning-to-rank algorithm interface.
 
-TPU-native counterpart of ``LTR_Algorithm``
+Counterpart of ``LTR_Algorithm``
 (include/learning/ltr_algorithm.h:33): ``learn`` / ``score_dataset`` /
 ``partial_scores_dataset`` / ensemble weight get/update / save/load.  Unlike
 the reference's per-doc virtual ``score_document``, scoring is always a

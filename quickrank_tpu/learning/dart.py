@@ -1,6 +1,6 @@
 """DART / X-DART — LambdaMART with per-iteration tree dropout.
 
-TPU-native re-design of ``Dart`` (src/learning/forests/dart.cc): the boosting
+Re-design of ``Dart`` (src/learning/forests/dart.cc): the boosting
 core (lambda gradients, tree fit, rescoring, metric) runs as jitted device
 kernels, while the dropout bookkeeping — which trees to drop, weight
 normalization on restore, permanent pruning — is host logic mirroring the
@@ -53,36 +53,10 @@ from quickrank_tpu.learning.mart import (
     build_valid_traindata,
     eval_metric,
 )
-from quickrank_tpu.ops.scoring import leaf_values_onehot, tree_delta_binned
+from quickrank_tpu.ops.scoring import leaf_values, tree_delta_binned
 from quickrank_tpu.trees.grow import leaf_outputs
 from quickrank_tpu.trees.structs import EnsembleTensors, Tree
 
-
-def _qs_delta_enabled() -> bool:
-    """Route the per-iteration dropped-set delta through bin-space QS
-    tables instead of the pad-length descent scan.
-
-    The scan (``_delta_body``) costs one full-dataset descent per PAD
-    slot, and the pad scales with ntrees (2^ceil(log2(2·rate_drop·T)));
-    at ntrees=200 / MSLR scale that is 64 descents ≈ +1.4 s/iter
-    (docs/sweeps/2026-08-21-dart-valid.json).  QS tables score every
-    tree in one grouped-matmul pass with `weight` separate from
-    structure, so zeroing the kept slots yields the same delta with
-    cost ~flat in the drop count.  Deltas differ from the scan only in
-    summation association (Kahan in slot order vs plain sum in drop
-    order); routing and leaf values are bitwise identical (trees/qs.py).
-
-    Gate mirrors mart.rescore_binned: single-controller TPU only (the
-    host-built tables are process-local).  QRTPU_DART_QS_DELTA=0
-    disables; =force enables on any backend (CPU equivalence tests)."""
-    import os
-
-    v = os.environ.get("QRTPU_DART_QS_DELTA", "auto")
-    if v == "0":
-        return False
-    if v == "force":
-        return True
-    return jax.default_backend() == "tpu" and jax.process_count() == 1
 
 SAMPLING_TYPES = (
     "UNIFORM", "WEIGHTED", "WEIGHTED_INV", "TOP_FIFTY", "CONTR", "CONTR_INV",
@@ -205,10 +179,7 @@ class Dart(LambdaMart):
             )
             if va is not None:
                 va = _dc.replace(va, step=shard_step_data(va.step, mesh, axis))
-        cfg = self._grow_config(
-            tr.num_bins, feat_axis, num_feat_shards,
-            num_real_features=tr.num_real_features,
-        )
+        cfg = self._grow_config(tr.num_bins, feat_axis, num_feat_shards)
         self._train_metric = metric
         md = self._descend_depth()
         rng = np.random.default_rng(self.seed)
@@ -246,7 +217,7 @@ class Dart(LambdaMart):
                 tree = leaf_outputs(
                     tree, node, grad, smask, weights=w, axis_name=axis
                 )
-            d_tr = leaf_values_onehot(node, tree)
+            d_tr = leaf_values(node, tree)
             contrib = jnp.sum(jnp.abs(d_tr) * tr_sd.doc_mask)
             if axis is not None:
                 contrib = jax.lax.psum(contrib, axis)
@@ -439,9 +410,6 @@ class Dart(LambdaMart):
                 if va is not None
                 else None
             )
-            # dropped-set deltas via QS tables (see _qs_delta_enabled);
-            # the descent scan above stays as the fallback/mesh path
-            use_qs_delta = _qs_delta_enabled()
             _eval_j = jax.jit(lambda s, sd: eval_metric(metric, sd, s))
             eval_tr = lambda s: _eval_j(s, tr.step)  # noqa: E731
             eval_va = (
@@ -494,9 +462,6 @@ class Dart(LambdaMart):
             delta_va_fn = (
                 _mk_delta(va.step, va_specs, None) if va is not None else None
             )
-            # mesh / multi-host runs keep the shard_map'd descent scan:
-            # host-built QS tables are process-local (see rescore_binned)
-            use_qs_delta = False
 
             def _mk_eval(sd, specs):
                 inner = jax.jit(
@@ -565,10 +530,9 @@ class Dart(LambdaMart):
         # iteration sees fixed shapes (delta arrays + [cap] mask) and
         # compiles exactly once.  Start the pad at ~2x the EXPECTED drop
         # count (binomial mean rate_drop*T, so 2x covers the steady-state
-        # tail) instead of 1: the delta scan's cost is flat in pad size
-        # (BENCHMARKS.md DART section), so the only effect is that the
-        # {1,2,4,...} recompile ladder — the r4 bench's 2-4 s iteration
-        # spikes — collapses to a single compile, paid below during init.
+        # tail) instead of 1, so the {1,2,4,...} recompile ladder collapses
+        # to a single compile, paid below during init.  Each pad slot costs
+        # one full-dataset descent, so the pad is kept no larger.
         exp_drop = (
             self.rate_drop if self.rate_drop >= 1
             else self.rate_drop * self.ntrees
@@ -625,32 +589,17 @@ class Dart(LambdaMart):
         # same fixed-shape program every real call reuses; the result is
         # discarded.
         _warm_idx, _warm_w = pad_set([], [])
-        if use_qs_delta:
-            # warm the QS delta program instead of the (unused) descent
-            # scan: capacity-shaped tables + raw binned dtype, so this
-            # one compile serves every dropped iteration
-            from quickrank_tpu.trees.qs import ensemble_to_qs, score_qs
-
-            _qs_w = ensemble_to_qs(ens, space="bin")
-            jax.block_until_ready(score_qs(tr.step.binned, _qs_w))
-            if va is not None:
-                jax.block_until_ready(score_qs(va.step.binned, _qs_w))
-        else:
-            jax.block_until_ready(delta_tr_fn(ens, _warm_idx, _warm_w))
-            if delta_va_fn is not None:
-                jax.block_until_ready(delta_va_fn(ens, _warm_idx, _warm_w))
+        jax.block_until_ready(delta_tr_fn(ens, _warm_idx, _warm_w))
+        if delta_va_fn is not None:
+            jax.block_until_ready(delta_va_fn(ens, _warm_idx, _warm_w))
         if (
-            jax.default_backend() == "tpu"
-            and jax.process_count() == 1
+            jax.process_count() == 1
             and iter_offset == 0  # a warm start's rescore above already
             # compiled and ran the identical capacity-shaped program
-            and not use_qs_delta  # the delta warm above compiled the
-            # same raw-binned capacity-shaped program already
         ):
             # also pre-compile the periodic-rescore QS program (capacity-
             # shaped tables, so one compile serves every rescore): its
-            # first mid-run call otherwise pays ~4 s (the one residual
-            # spike after the pad-ladder warm).
+            # first mid-run call otherwise pays that compile.
             from quickrank_tpu.trees.qs import ensemble_to_qs, score_qs
 
             _qs0 = ensemble_to_qs(ens, space="bin")
@@ -710,34 +659,13 @@ class Dart(LambdaMart):
             dropmask = np.zeros(cap, bool)
             if dropped:
                 dropmask[dropped] = True
-                if use_qs_delta:
-                    # one grouped-matmul pass, cost ~flat in drop count:
-                    # structure tables for the current ensemble, weight
-                    # vector zero except the dropped slots (score_qs's
-                    # Kahan chain adds exact zeros there)
-                    from quickrank_tpu.trees.qs import (
-                        ensemble_to_qs,
-                        score_qs,
-                    )
-
-                    qs_t = ensemble_to_qs(ens, space="bin")
-                    wvec = np.zeros(qs_t.weight.shape[0], np.float32)
-                    wvec[dropped] = w_host[dropped]
-                    qs_t = qs_t.replace(weight=jnp.asarray(wvec))
-                    delta_tr = score_qs(tr.step.binned, qs_t)
-                    delta_va = (
-                        score_qs(va.step.binned, qs_t)
-                        if va is not None
-                        else jnp.zeros((1,), jnp.float32)
-                    )
-                else:
-                    idx, w = pad_set(dropped, w_host[dropped])
-                    delta_tr = delta_tr_fn(ens, idx, w)
-                    delta_va = (
-                        delta_va_fn(ens, idx, w)
-                        if va is not None
-                        else jnp.zeros((1,), jnp.float32)
-                    )
+                idx, w = pad_set(dropped, w_host[dropped])
+                delta_tr = delta_tr_fn(ens, idx, w)
+                delta_va = (
+                    delta_va_fn(ens, idx, w)
+                    if va is not None
+                    else jnp.zeros((1,), jnp.float32)
+                )
             else:
                 # fresh zeros each time: these buffers are donated
                 delta_tr = _zeros_like_j(scores_tr)

@@ -1,6 +1,6 @@
 """LambdaMART — listwise boosting with metric-derived lambda gradients.
 
-TPU-native re-design of ``LambdaMart`` (src/learning/forests/lambdamart.cc):
+Re-design of ``LambdaMart`` (src/learning/forests/lambdamart.cc):
 extends :class:`Mart`, replacing the pointwise pseudoresponses by the batched
 pairwise lambda kernel (ops/lambdas.py) and switching leaf outputs to the
 Newton step sum(lambda)/sum(w) (lambdamart.cc:47-60 -> rt.cc:186-207).

@@ -1,6 +1,6 @@
 """Linear rankers: CoordinateAscent and LineSearch.
 
-TPU-native re-designs of ``CoordinateAscent``
+Re-designs of ``CoordinateAscent``
 (src/learning/linear/coordinate_ascent.cc:116-248) and ``LineSearch``
 (src/learning/linear/line_search.cc:153-419).  Both search weight vectors for
 the linear model ``score = w . x`` by evaluating a grid of candidate weights;
@@ -85,6 +85,14 @@ def shard_padded(padded: PaddedDataset, mesh, axis: str) -> PaddedDataset:
     return jax.tree.map(
         lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), padded, specs
     )
+
+
+def matmul_highest(X, w):
+    """``X @ w`` at full float32 precision: a default f32 matrix product
+    may run in TF32 on the GPU (about three decimal digits), and the
+    linear rankers' scores, and so their metric-driven weight search, must
+    match the CPU's."""
+    return jnp.matmul(X, w, precision=jax.lax.Precision.HIGHEST)
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
@@ -196,7 +204,7 @@ class CoordinateAscent(_LinearRanker):
 
             def fstep(i, w):
                 col = jax.lax.dynamic_index_in_dim(X, i, 1, keepdims=False)
-                full = X @ w
+                full = matmul_highest(X, w)
                 wi = w[i]
                 presum = full - wi * col
                 current = eval_padded_local(metric, padded, full, axis)
@@ -212,10 +220,10 @@ class CoordinateAscent(_LinearRanker):
                 return w2
 
             w = jax.lax.fori_loop(0, F, fstep, w)
-            return w, eval_padded_local(metric, padded, X @ w, axis)
+            return w, eval_padded_local(metric, padded, matmul_highest(X, w), axis)
 
         def valid_body(w, Xv, vpadded):
-            return eval_padded_local(metric, vpadded, Xv @ w, axis)
+            return eval_padded_local(metric, vpadded, matmul_highest(Xv, w), axis)
 
         if mesh is None:
             epoch = jax.jit(epoch_body)
@@ -359,7 +367,7 @@ class LineSearch(_LinearRanker):
 
         def iteration_body(w, w_prev, best_m, window, X, padded):
             step1 = 2.0 * window / P_
-            full_prev = X @ w_prev
+            full_prev = matmul_highest(X, w_prev)
 
             def fstep(f, w):
                 col = jax.lax.dynamic_index_in_dim(X, f, 1, keepdims=False)
@@ -380,7 +388,7 @@ class LineSearch(_LinearRanker):
             dstep = (w - w_prev) / P_
             zeros = jnp.all(dstep == 0)
             base = full_prev
-            dscore = X @ dstep
+            dscore = matmul_highest(X, dstep)
             pidx = jnp.arange(P_ + 1, dtype=jnp.float32)
             cands = base[None, :] + pidx[:, None] * dscore[None, :]
             ms2 = self._metric_batch(metric, padded, cands, axis)
@@ -393,10 +401,10 @@ class LineSearch(_LinearRanker):
             return w_new, w_prev_new, best_new, gain
 
         def train_body(w, X, padded):
-            return eval_padded_local(metric, padded, X @ w, axis)
+            return eval_padded_local(metric, padded, matmul_highest(X, w), axis)
 
         def valid_body(w, Xv, vpadded):
-            return eval_padded_local(metric, vpadded, Xv @ w, axis)
+            return eval_padded_local(metric, vpadded, matmul_highest(Xv, w), axis)
 
         if mesh is None:
             iteration = jax.jit(iteration_body)

@@ -1,6 +1,6 @@
 """MetaCleaver (X-CLEaVER) — iterative grow-and-prune meta-algorithm.
 
-TPU-native counterpart of ``MetaCleaver`` (src/learning/meta/
+Counterpart of ``MetaCleaver`` (src/learning/meta/
 meta_cleaver.cc:118-373): wraps a Mart-family learner and a Cleaver
 optimizer; each meta-iteration (1) warm-starts the learner to grow
 ``ntrees_per_iter`` more trees, (2) extracts the partial-score matrix and

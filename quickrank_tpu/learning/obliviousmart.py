@@ -1,6 +1,6 @@
 """Oblivious MART / Oblivious LambdaMART — symmetric-tree boosting.
 
-TPU-native counterparts of ``ObliviousMart`` / ``ObliviousLambdaMart``
+Counterparts of ``ObliviousMart`` / ``ObliviousLambdaMart``
 (src/learning/forests/obliviousmart.cc, obliviouslambdamart.cc): identical
 boosting loops to Mart/LambdaMart but the regressor is the level-synchronous
 oblivious tree (trees/oblivious.py, ot.cc semantics).  The fitted tree is
@@ -29,7 +29,8 @@ from quickrank_tpu.trees.oblivious import (
 @_lru_cache(maxsize=None)
 def _oblivious_scorer(tree_chunk):
     """Stable function object per chunk size for score_rows_sharded's
-    (fn, mesh) memoization (see mart._descent_scorer)."""
+    (fn, mesh) memoization: a fresh function per call would recompile
+    the scorer on every mesh scoring call."""
 
     def fn(f, e):
         return score_oblivious(f, e, tree_chunk=tree_chunk)
@@ -92,7 +93,7 @@ class _ObliviousFit:
         Node-numbering agnostic (works for freshly-trained heap-layout trees
         and XML-loaded DFS-numbered ones): per level, (feature, threshold)
         is read off the leftmost path; leaf l is reached by walking l's bits.
-        Cached per ensemble (like Mart's _perfect_embedding/_qs_tables):
+        Cached per ensemble (like Mart's _qs_tables):
         the pure-Python extraction is ~T*(D + L*D) iterations, which a
         per-round quickscore mesh loop would otherwise repay every call.
         """
@@ -143,28 +144,15 @@ class _ObliviousFit:
         return obl
 
     def _dispatch_scorer(self, ds, tree_chunk: int = 0):
-        """Oblivious override of Mart's dispatch: the bit-OR fast path
-        (Pallas on TPU, level-table scorer elsewhere).  Also serves
-        device_scorer, so quickscore.py's timing loop stays device-side."""
-        import jax
-
-        obl = self.oblivious_ensemble()
-        feats = ds.features
-        if jax.default_backend() == "tpu":
-            from quickrank_tpu.ops.pallas_oblivious import score_oblivious_pallas
-            from quickrank_tpu.trees.perfect import compact_feature_space
-
-            compact = compact_feature_space(feats, np.asarray(obl.fid))
-            if compact is not None:
-                feats, fid_c = compact
-                obl = obl.replace(fid=jnp.asarray(fid_c))
-            return score_oblivious_pallas, obl, feats
-        return _oblivious_scorer(tree_chunk), obl, feats
+        """Oblivious override of Mart's dispatch: the bit-OR level-table
+        scorer (ops/oblivious.py).  Also serves device_scorer, so
+        quickscore.py's timing loop stays device-side."""
+        return _oblivious_scorer(tree_chunk), self.oblivious_ensemble(), ds.features
 
     def score_dataset(self, ds, tree_chunk: int = 0, mesh=None) -> np.ndarray:
         """Scores via the symmetric-tree fast path.  With ``mesh`` the doc
         rows fan out over every mesh axis (parallel/mesh.py::
-        score_rows_sharded), the bit-OR Pallas kernel running per shard."""
+        score_rows_sharded), the bit-OR scorer running per shard."""
         fn, obl, feats = self._dispatch_scorer(ds, tree_chunk)
         if mesh is not None:
             from quickrank_tpu.parallel.mesh import score_rows_sharded

@@ -1,6 +1,6 @@
 """Random Forest — bagged regression trees on the raw labels.
 
-TPU-native counterpart of ``RandomForest``
+Counterpart of ``RandomForest``
 (src/learning/forests/randomforest.cc:35-52): identical to Mart except the
 pseudoresponses are the labels on every iteration (no gradient feedback);
 randomness comes from the ``subsample`` / ``max_features`` bagging knobs.

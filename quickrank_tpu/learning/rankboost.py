@@ -1,6 +1,6 @@
 """RankBoost — pairwise boosting of binary threshold weak rankers.
 
-TPU-native re-design of ``Rankboost`` (src/learning/forests/rankboost.cc).
+Re-design of ``Rankboost`` (src/learning/forests/rankboost.cc).
 The reference keeps explicit per-query pair-weight matrices ``D[q][i][j]``
 (rankboost.cc:276-292) and updates them multiplicatively every round
 (rankboost.cc:419-445).  Materializing that tensor is O(Q * Dmax^2) — ~100 GB
@@ -24,7 +24,7 @@ the metric.  Every quantity the algorithm reads off D factorizes:
     walk over every threshold (rankboost.cc:365-415) — is a histogram of
     ``pi`` over (feature, bin) + suffix sum: ``r(f, t) = sum of pi over
     docs with bin(doc, f) > t``, maximized by one argmax over [F, B].
-    The histogram reuses the MXU Pallas kernel tree growth uses.
+    The histogram reuses the pass tree growth uses (ops/histogram.py).
 
 Reference semantics preserved:
   * pairs (i, j): i < j in dataset order with label_j > label_i

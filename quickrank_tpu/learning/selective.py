@@ -1,7 +1,7 @@
 """Selective Gradient Boosting (SIGIR'18) — LambdaMART with periodic
 rank-aware negative sampling.
 
-TPU-native counterpart of ``LambdaMartSelective``
+Counterpart of ``LambdaMartSelective``
 (src/learning/forests/lambdamartselective.cc): every ``sampling_iterations``
 boosting rounds, each query keeps ALL positives plus (a) its top-scored
 negatives and (b) random extra negatives; the counts follow the

@@ -1,6 +1,6 @@
 """Stochastic negative sampling LambdaMART.
 
-TPU-native counterpart of ``StochasticNegative``
+Counterpart of ``StochasticNegative``
 (src/learning/forests/stochasticnegative.cc:285-330): every iteration, each
 query keeps ALL its positive (label > 0) docs plus a ``subsample`` fraction
 (count if > 1) of its negatives drawn uniformly; lambdas are computed only

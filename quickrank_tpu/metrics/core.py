@@ -2,7 +2,7 @@
 
 All functions operate on rank-space or doc-space arrays shaped ``[Q, D]``
 (queries x padded doc slots) with a boolean validity mask, fully vectorized
-over queries — the TPU-native replacement of the reference's per-query serial
+over queries — the replacement of the reference's per-query serial
 loops (include/metric/ir/metric.h:77-106).
 
 Conventions (matching the reference):
@@ -54,8 +54,8 @@ def sort_by_score(scores, slot_mask, *extras):
     Returns ``(order, sorted_mask, *sorted_extras)`` — the same permutation
     as :func:`rank_order` (identical key and tie order), but the payloads
     ride the sort instead of being fetched with per-row ``take_along_axis``
-    gathers afterwards, which are ~50x slower than the sort itself on TPU
-    (each is a random-access gather; the sort's payload moves are fused).
+    gathers afterwards (each a random-access gather; the sort's payload
+    moves are fused).
     """
     D = scores.shape[-1]
     key = jnp.where(slot_mask, -scores, jnp.inf)

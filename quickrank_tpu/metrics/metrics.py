@@ -1,6 +1,6 @@
 """Metric classes and factory.
 
-TPU-native counterpart of ``include/metric/ir/*`` + ``metric_factory.h:20-37``.
+Counterpart of ``include/metric/ir/*`` + ``metric_factory.h:20-37``.
 Each metric wraps the batched kernels in :mod:`quickrank_tpu.metrics.core`:
 
   * ``evaluate_per_query(scores, labels, slot_mask, nvalid) -> [Q]``

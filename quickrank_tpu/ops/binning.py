@@ -1,6 +1,6 @@
 """Feature binning: threshold construction + doc->bin quantization.
 
-TPU-native replacement of the reference's per-feature radix argsort +
+Replacement of the reference's per-feature radix argsort +
 threshold tables + ``stmap`` (src/learning/forests/mart.cc:127-170 and the
 RTRootHistogram stmap build, src/learning/tree/rtnode_histogram.cc:227-253).
 Instead of keeping per-feature sorted doc-id lists, we quantize every feature

@@ -1,25 +1,35 @@
 """Split-statistics histograms over binned features.
 
-TPU-native replacement of ``RTNodeHistogram`` (include/learning/tree/
+Replacement of ``RTNodeHistogram`` (include/learning/tree/
 rtnode_histogram.h:26, src/learning/tree/rtnode_histogram.cc:41-217): instead
 of per-node cumulative ``sumlbl[f][t]`` / ``count[f][t]`` arrays rebuilt with
-OpenMP loops, histograms are dense ``[F, B, C]`` tensors built by one
-scatter-add over the doc axis and cumulative sums are taken at gain-scan time.
+OpenMP loops, histograms are dense ``[F, B, C]`` tensors built by one pass
+over the doc axis and cumulative sums are taken at gain-scan time.
 
 Channels (C axis): 0 = doc count, 1 = sum of gradients (pseudoresponses),
 2 = sum of squared gradients (backs the node deviance used as the best-first
 split priority, rt.cc:59-76).
 
-In sharded training each chip builds the histogram of its local docs and the
-results are ``psum``-reduced over the mesh axis — the single cross-chip
-collective of the training loop (SURVEY.md §2.9).
+Every histogram is built by passes of one contract (:func:`histogram_pass`):
+the [k, F, B, C] histograms of the docs whose node id is n0 .. n0+k-1.  On
+the GPU a pass is the CUDA kernel of ops/cuda_histogram.py (shared-memory
+partial sums per block); on the CPU it is the plain XLA scatter-add
+:func:`histogram_pass_xla`, which is also the kernel's reference.  The
+choice is made when the program is lowered for its device
+(``lax.platform_dependent``), so a run on ``jax.devices("cpu")`` in a GPU
+process takes the CPU branch.
+
+In sharded training each device builds the histogram of its local docs and
+the results are ``psum``-reduced over the mesh axis — the single cross-
+device collective of the training loop (SURVEY.md §2.9).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
-NCHANNELS = 3  # count, sum_grad, sum_grad_sq
+from quickrank_tpu.ops import cuda_histogram
 
 
 def doc_channels(grad: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
@@ -28,90 +38,77 @@ def doc_channels(grad: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([m, grad * m, grad * grad * m], axis=-1)
 
 
-def _on_tpu() -> bool:
-    import jax as _jax
-
-    try:
-        return _jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def masked_histogram(
+def histogram_pass_xla(
     binned: jnp.ndarray,
     values: jnp.ndarray,
-    mask: jnp.ndarray,
+    pos: jnp.ndarray,
+    n0: int,
+    k: int,
     num_bins: int,
 ) -> jnp.ndarray:
-    """Histogram of one doc subset: ``hist[f, b, c] = sum over docs in mask
-    with bin(doc, f) == b of values[doc, c]``.
+    """``out[i, f, b, c]`` = sum of ``values[n, c]`` over docs with
+    ``pos[n] == n0 + i`` and ``binned[n, f] == b``: ``[k, F, B, C]`` f32.
 
-    binned: i32 ``[N, F]``; values: ``[N, C]``; mask: bool ``[N]``.
-    Returns ``[F, B, C]`` float32.
-
-    Dispatch: the MXU Pallas kernel on TPU (ops/pallas_histogram.py), the
-    scatter-add fallback elsewhere.
-    """
-    if _on_tpu():
-        # channel-major select ([C, N] — ~3x less HBM traffic than the
-        # 8-lane-padded doc-major [N, C] form), then the node kernel with
-        # the mask folded in as a two-node id row: out-of-mask docs route
-        # to node 1, whose channels are never read back
-        vt = jnp.where(mask[None, :], values.T, 0.0)
-        return masked_histogram_t(binned, vt, mask, num_bins)
-    return masked_histogram_scatter(binned, values, mask, num_bins)
-
-
-def masked_histogram_t(
-    binned: jnp.ndarray,
-    values_t: jnp.ndarray,
-    mask: jnp.ndarray,
-    num_bins: int,
-    f_used: int = 0,
-) -> jnp.ndarray:
-    """:func:`masked_histogram` from CHANNEL-MAJOR premasked values.
-
-    ``values_t`` is f32 ``[C, N]`` with zero columns outside the *constant*
-    doc/sample mask (so it can be built once per tree); ``mask`` carries the
-    per-call subset bits only.  On TPU the subset select happens INSIDE the
-    Pallas kernel (``pos`` row, an [N] i32 per call) instead of an [N, C]
-    doc-major select + layout copy per call — the same trick that made
-    level-wise growth fast (ops/pallas_histogram.py::_node_kernel).  The
-    best-first grower calls this once per split (trees/grow.py::hist_of).
-    """
-    if _on_tpu():
-        from quickrank_tpu.ops.pallas_histogram import node_histogram_pallas
-
-        pos = jnp.where(mask, 0, 1).astype(jnp.int32)
-        return node_histogram_pallas(
-            binned, values_t, pos, num_bins, 0, 1, f_used=f_used
-        )
-    if f_used:
-        binned = binned[:, :f_used]
-    return masked_histogram_scatter(binned, values_t.T, mask, num_bins)
-
-
-def masked_histogram_scatter(
-    binned: jnp.ndarray,
-    values: jnp.ndarray,
-    mask: jnp.ndarray,
-    num_bins: int,
-) -> jnp.ndarray:
-    """Scatter-add implementation (one pass over N x F).  Masked docs are
-    routed to a dummy overflow bin that is sliced away."""
+    The plain XLA reference of the pass contract: one flat scatter-add
+    keyed by (node, feature, bin).  Docs outside the node range and
+    out-of-range bin ids (bin == num_bins happens for features past the
+    FLT_MAX sentinel, e.g. +inf values) are DROPPED per (doc, feature)
+    element — a clamp would count them in the top bin.  ``values`` must be
+    zero for docs outside the doc mask."""
     binned = binned.astype(jnp.int32)  # u8 storage would overflow the keys
     N, F = binned.shape
     C = values.shape[-1]
-    # Masked docs go to an extra trash bin per feature.
-    safe_bins = jnp.where(mask[:, None], binned, num_bins)
+    node = pos.astype(jnp.int32) - n0
+    node_ok = (node >= 0) & (node < k)
+    ok = node_ok[:, None] & (binned >= 0) & (binned < num_bins)
     fidx = jnp.arange(F, dtype=jnp.int32)[None, :]
-    flat = fidx * (num_bins + 1) + safe_bins  # [N, F]
-    vals = jnp.broadcast_to(values[:, None, :], (N, F, C))
-    hist = jnp.zeros((F * (num_bins + 1), C), dtype=jnp.float32)
+    flat = (jnp.where(node_ok, node, 0)[:, None] * F + fidx) * num_bins + (
+        jnp.clip(binned, 0, num_bins - 1)
+    )
+    flat = jnp.where(ok, flat, k * F * num_bins)  # trash slot, sliced away
+    vals = jnp.broadcast_to(values.astype(jnp.float32)[:, None, :], (N, F, C))
+    hist = jnp.zeros((k * F * num_bins + 1, C), dtype=jnp.float32)
     hist = hist.at[flat.reshape(-1)].add(
         vals.reshape(-1, C), mode="drop", unique_indices=False
     )
-    return hist.reshape(F, num_bins + 1, C)[:, :num_bins, :]
+    return hist[:-1].reshape(k, F, num_bins, C)
+
+
+def kernel_takes(binned_dtype, num_bins: int, num_channels: int) -> bool:
+    """Whether the GPU kernel serves a pass of this input: a bin dtype it
+    reads, and one node's [B, C] partial sums per feature in one block's
+    shared memory (up to 8191 bins at three channels).  Otherwise the GPU
+    takes the XLA scatter too."""
+    return jnp.dtype(binned_dtype) in [
+        jnp.dtype(d) for d in cuda_histogram.BIN_DTYPES
+    ] and cuda_histogram.max_nodes_per_pass(num_bins, num_channels) >= 1
+
+
+def node_passes(num_nodes: int, num_bins: int, num_channels: int):
+    """``[(n0, k), ...]``: the node ranges of the passes that build
+    ``num_nodes`` histograms, each small enough for the GPU kernel's shared
+    memory (one pass when not even one node fits: the XLA scatter takes
+    it).  The same split runs on every device, so the CPU tests cover
+    it."""
+    per = cuda_histogram.max_nodes_per_pass(num_bins, num_channels) or num_nodes
+    return [(n0, min(per, num_nodes - n0)) for n0 in range(0, num_nodes, per)]
+
+
+def histogram_pass(binned, values, pos, n0: int, k: int, num_bins: int):
+    """One pass of the contract of :func:`histogram_pass_xla`: the CUDA
+    kernel on the GPU, the XLA scatter on the CPU (chosen at lowering)."""
+    args = (binned, values, pos)
+
+    def xla(b, v, p):
+        return histogram_pass_xla(b, v, p, n0, k, num_bins)
+
+    if not kernel_takes(binned.dtype, num_bins, values.shape[-1]):
+        return xla(*args)
+
+    def cuda(b, v, p):
+        return cuda_histogram.histogram_pass_cuda(b, v, p, n0, k, num_bins)
+
+    return jax.lax.platform_dependent(*args, cpu=xla, cuda=cuda)
 
 
 def node_histograms(
@@ -126,73 +123,32 @@ def node_histograms(
     """Histograms for every node at once: ``[num_nodes, F, B, C]``.
 
     The batched equivalent of building an RTNodeHistogram per fringe node
-    (rtnode_histogram.cc:41-70).  Docs with node id outside [0, num_nodes)
-    or masked out contribute nothing.  On TPU the MXU kernel packs several
-    nodes' channels per pass and selects node membership IN the kernel
-    (ops/pallas_histogram.py::node_histogram_pallas); elsewhere one flat
-    scatter-add.  Pass ``values_premasked=True`` when value rows of docs
-    outside ``doc_mask`` are already zero — it skips an [N, C] select that
-    otherwise round-trips HBM.
-    """
-    if _on_tpu():
-        from quickrank_tpu.ops.pallas_histogram import node_histogram_pallas
-
-        N, F = binned.shape
-        C = values.shape[-1]
-        if not values_premasked:
-            values = jnp.where(doc_mask[:, None], values, 0.0)
-        # channel-major for the kernel: a doc-major [N, small-C] f32 array
-        # is 128-lane padded on device (see _node_kernel docstring); the
-        # transpose fuses into the kernel operand build
-        vt = values.T
-        # pack several nodes' channel groups into one kernel pass (the
-        # channel axis is the matmul M dimension, so packing raises MXU
-        # occupancy and turns per-level growth into ~1 pass per level)
-        per_pass = max(1, 32 // C)
-        outs = []
-        for n0 in range(0, num_nodes, per_pass):
-            k = min(per_pass, num_nodes - n0)
-            h = node_histogram_pallas(
-                binned, vt, node_of_doc, num_bins, n0, k
-            )  # [F, B, k*C]
-            outs.append(
-                jnp.moveaxis(h.reshape(F, h.shape[1], k, C), 2, 0)
-            )
-        return jnp.concatenate(outs, axis=0)
-    return node_histograms_scatter(
-        binned, values, node_of_doc, doc_mask, num_nodes, num_bins
-    )
+    (rtnode_histogram.cc:41-70).  binned: ``[N, F]`` bin ids (u8/u16/i32);
+    values: ``[N, C]``; node_of_doc: i32 ``[N]``.  Docs with node id
+    outside [0, num_nodes) or masked out contribute nothing.  Pass
+    ``values_premasked=True`` when value rows of docs outside ``doc_mask``
+    are already zero — it skips an [N, C] select."""
+    if not values_premasked:
+        values = jnp.where(doc_mask[:, None], values, 0.0)
+    outs = [
+        histogram_pass(binned, values, node_of_doc, n0, k, num_bins)
+        for n0, k in node_passes(num_nodes, num_bins, values.shape[-1])
+    ]
+    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
 
 
-def node_histograms_scatter(
+def masked_histogram(
     binned: jnp.ndarray,
     values: jnp.ndarray,
-    node_of_doc: jnp.ndarray,
-    doc_mask: jnp.ndarray,
-    num_nodes: int,
+    mask: jnp.ndarray,
     num_bins: int,
 ) -> jnp.ndarray:
-    """Scatter-add implementation keyed by (node, feature, bin)."""
-    binned = binned.astype(jnp.int32)  # u8 storage would overflow the keys
-    N, F = binned.shape
-    C = values.shape[-1]
-    ok = doc_mask & (node_of_doc >= 0) & (node_of_doc < num_nodes)
-    node = jnp.where(ok, node_of_doc, num_nodes)
-    fidx = jnp.arange(F, dtype=jnp.int32)[None, :]
-    # out-of-range bin ids (bin == num_bins happens for features past the
-    # FLT_MAX sentinel, e.g. +inf values) are DROPPED per (doc, feature)
-    # element — the same semantic as the Pallas kernel's one-hot (no
-    # column matches) and masked_histogram_scatter's trash bin; a clamp
-    # here would count such docs in the top bin on CPU only, diverging
-    # trees between backends.
-    bin_ok = (binned >= 0) & (binned < num_bins)
-    node_elem = jnp.where(bin_ok, node[:, None], num_nodes)
-    flat = (node_elem * F + fidx) * num_bins + jnp.clip(
-        binned, 0, num_bins - 1
-    )
-    vals = jnp.broadcast_to(values[:, None, :], (N, F, C))
-    hist = jnp.zeros(((num_nodes + 1) * F * num_bins, C), dtype=jnp.float32)
-    hist = hist.at[flat.reshape(-1)].add(
-        vals.reshape(-1, C), mode="drop", unique_indices=False
-    )
-    return hist.reshape(num_nodes + 1, F, num_bins, C)[:num_nodes]
+    """Histogram of one doc subset: ``hist[f, b, c] = sum over docs in mask
+    with bin(doc, f) == b of values[doc, c]`` — ``[F, B, C]`` float32.
+
+    Docs outside ``mask`` contribute nothing: the mask is folded in as a
+    node id (in-subset docs are node 0, the rest node -1), so the best-
+    first grower builds its channel rows once per tree and passes only the
+    per-split subset."""
+    pos = jnp.where(mask, 0, -1).astype(jnp.int32)
+    return histogram_pass(binned, values, pos, 0, 1, num_bins)[0]

@@ -4,7 +4,7 @@ Vectorized replacement of ``LambdaMart::compute_pseudoresponses``
 (src/learning/forests/lambdamart.cc:62-152): instead of a per-query OpenMP
 loop with an O(n^2) scalar pair walk, all queries are processed as a batched
 ``[Q, D, D]`` pair tensor (optionally in query chunks to bound memory — the
-TPU analog of the reference's cutoff ``break`` at lambdamart.cc:124-126 is a
+analog of the reference's cutoff ``break`` at lambdamart.cc:124-126 is a
 pair mask).
 
 Per query, for every rank pair (j, k) with label_j > label_k and not both
@@ -64,9 +64,9 @@ def _lambda_block_banded(scores, labels, slot_mask, nvalid, metric):
 
     # ONE [.., cut, D] pair block covers both rectangles: rows are the
     # cut slice, cols are all docs.  Block A is the (row label > col label)
-    # half; block B — originally [D, cut], whose 10-wide lane dim the TPU
-    # would pad to 128 — is computed TRANSPOSED as the (row label < col
-    # label) half of the same block, because delta is symmetric in (j, k)
+    # half; block B — originally [D, cut] — is computed TRANSPOSED as the
+    # (row label < col label) half of the same block, because delta is
+    # symmetric in (j, k)
     # and sigmoid(-x) = 1 - sigmoid(x).  The two halves fold into a single
     # signed tensor G for lambdas and a single W for weights (the weight
     # product rho(1-rho) is symmetric), and the per-query 1/IDCG scales
@@ -163,10 +163,8 @@ def lambda_gradients(
     block = _lambda_block_banded if banded else _lambda_block
     pair_elems = (cut * D) if banded else (D * D)
     if query_chunk is None:
-        # ~4 live pair tensors; ~45 MB each is the measured sweet spot on
-        # v5e (smaller chunks pay lax.map loop overhead, bigger ones spill
-        # past the cache-friendly working set: 300 ms -> 223 ms per pass at
-        # MSLR scale, BENCHMARKS.md)
+        # ~4 live pair tensors of ~45 MB each bound the working set (the
+        # size is not yet tuned on the GPU)
         budget = (45 << 20) // (4 * max(pair_elems, 1))
         query_chunk = Q if budget >= Q else max(1, budget)
     if query_chunk >= Q:

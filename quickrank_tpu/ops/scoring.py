@@ -25,8 +25,8 @@ def kahan_add(s: jnp.ndarray, c: jnp.ndarray, d: jnp.ndarray):
     ``s' + c' ~= s + c + d`` to ~f64 accuracy while staying in f32.
 
     The reference accumulates ensemble scores in double (``Score = double``,
-    include/types.h:28-35; ensemble.cc:111-118); on TPU f64 is emulated and
-    slow, so compensated f32 is the native equivalent.  XLA does not
+    include/types.h:28-35; ensemble.cc:111-118); on the GPU f64 runs at a
+    small fraction of the f32 rate, so compensated f32 is the equivalent.  XLA does not
     reassociate float arithmetic by default, so the correction term
     survives compilation (asserted by tests/test_precision.py).
     """
@@ -59,58 +59,8 @@ def descend_tree(features: jnp.ndarray, tree: Tree, max_depth: int) -> jnp.ndarr
     return jax.lax.fori_loop(0, max_depth, step, node0)
 
 
-def descend_tree_matmul(
-    features: jnp.ndarray, tree: Tree, max_depth: int
-) -> jnp.ndarray:
-    """Value-space descent with one-hot column selection — the TPU path
-    for models too deep for the perfect-tree embedding (best-first
-    16-leaf trees run to depth 15; 2^15-leaf embeddings don't pay).
-
-    EXACT despite the MXU: every output element of the column-select dot
-    is a sum of exactly one nonzero product (each node has one split
-    feature), ``x * 1.0`` is exact under any bf16-pass decomposition of
-    an f32 matmul (1.0 is exact in bf16, x = hi + lo splits recombine in
-    the f32 accumulator), and ``x * 0.0`` is 0 — so the compare sees the
-    original f32 feature bit-for-bit (pinned vs the gather path by
-    tests/test_trees.py).  Rationale as descend_tree_binned_matmul: a
-    per-doc gather chain costs ~0.9 s/tree at MSLR scale."""
-    N, W = features.shape
-    max_nodes = tree.max_nodes
-    node = jnp.zeros((N,), jnp.int32)
-    ids = jnp.arange(max_nodes)
-    sel = (
-        tree.feature[None, :] == jnp.arange(W)[:, None]
-    ).astype(jnp.float32)  # [W, max_nodes]
-    fcols = jax.lax.dot_general(
-        features.astype(jnp.float32), sel, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # [N, max_nodes] — every node's split column for every doc
-
-    for _ in range(max_depth):
-        own = (node[:, None] == ids[None, :]).astype(jnp.float32)
-        val = jnp.sum(own * fcols, axis=1)
-        thr = _onehot_read(own, tree.threshold)
-        left = _onehot_read(own, tree.left)
-        right = _onehot_read(own, tree.right)
-        leaf = _onehot_read(own, tree.is_leaf.astype(jnp.int32))
-        nxt = jnp.where(val <= thr, left, right)
-        node = jnp.where(leaf > 0, node.astype(jnp.float32), nxt).astype(
-            jnp.int32
-        )
-    return node
-
-
 def score_tree(features: jnp.ndarray, tree: Tree, max_depth: int) -> jnp.ndarray:
-    """Unweighted output of one tree for every doc: f32 [N].
-
-    Dispatches gather descent (CPU: O(N) per level) vs matmul descent +
-    one-hot leaf read (TPU: per-doc gathers serialize ~50x slower) at
-    trace time, the same backend split ops/histogram.py uses."""
-    if jax.default_backend() == "tpu":
-        return leaf_values_onehot(
-            descend_tree_matmul(features, tree, max_depth), tree
-        )
+    """Unweighted output of one tree for every doc: f32 [N]."""
     return tree.leaf_value[descend_tree(features, tree, max_depth)]
 
 
@@ -154,91 +104,11 @@ def descend_tree_binned(
     return jax.lax.fori_loop(0, max_depth, step, node0)
 
 
-def _onehot_read(own_f32: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """One-hot weighted read of a tiny per-node table: f32 [N].
-
-    ``own_f32`` is the [N, max_nodes] one-hot of each doc's node id.  A
-    plain ``table[node]`` gather from even a 31-entry table lowers to a
-    ~15-20 ms serialized path at MSLR scale on this target
-    (scripts/bench_permute.py); the one-hot product/sum fuses into a
-    single VPU pass and is exact (one nonzero term per row, f32 products
-    of {0,1} weights)."""
-    return jnp.sum(own_f32 * table.astype(jnp.float32)[None, :], axis=1)
-
-
-def leaf_values_onehot(node: jnp.ndarray, tree: Tree) -> jnp.ndarray:
-    """``tree.leaf_value[node]`` without the per-doc gather: f32 [N].
-
-    Exact replacement for the reference's leaf-output read after routing
-    (rtnode.h:134-152 returns the reached leaf's avglabel); negative node
-    ids clamp to 0 like the gather path's ``jnp.maximum(node, 0)``.  On
-    CPU the plain gather stays (no TPU gather penalty there; bitwise
-    equal either way)."""
-    if jax.default_backend() != "tpu":
-        return tree.leaf_value[jnp.maximum(node, 0)]
-    ids = jnp.arange(tree.max_nodes)
-    own = (
-        jnp.maximum(node, 0)[:, None] == ids[None, :]
-    ).astype(jnp.float32)
-    return _onehot_read(own, tree.leaf_value)
-
-
-def descend_tree_binned_matmul(
-    binned: jnp.ndarray, tree: Tree, max_depth: int
-) -> jnp.ndarray:
-    """Bin-space tree descent with MXU column selection instead of per-doc
-    column gathers (jnp.take_along_axis serializes ~50x slower on TPU —
-    same rationale as grow_level._route_bits).  ALL per-doc table lookups
-    (split column, threshold, child ids, leaf bit) go through one-hot
-    dots: an [N]-gather from even a 31-entry table lowers to a ~15-20 ms
-    slow path on this target (scripts/bench_permute.py's flat-gather
-    row), and descent needs four per level.  Exact: u8 bins <= 255 are
-    exact in bf16 (and the threshold_bins they compare against are < 256
-    by mart.py's wire construction); wider bin ids (u16 wire,
-    nthresholds > 256) ride the f32/HIGHEST-precision dot, exact to 2^24
-    (see descend_tree_matmul's exactness argument).  The table dots run
-    in f32 with one-hot weights.
-
-    Bitwise-equal to descend_tree_binned, asserted by
-    tests/test_cluster.py and tests/test_trees.py."""
-    N, W = binned.shape
-    max_nodes = tree.max_nodes
-    node = jnp.zeros((N,), jnp.int32)
-    ids = jnp.arange(max_nodes)
-    # u8 wire data (StepData.binned whenever num_bins <= 256, mart.py
-    # ``wire = binned.astype(np.uint8)``) rides a single-pass bf16 dot:
-    # bin ids <= 255 and their threshold_bins (< 256 by the same
-    # construction) are exact bf16 integers, and the f32 accumulator keeps
-    # the dot exact.  Wider wire dtypes (u16/i32, nthresholds > 256) take
-    # the multi-pass f32/HIGHEST dot, exact to 2^24.  This is the hot
-    # per-iteration dot of DART deltas and binned rescores — do not fold
-    # the branches (r5 briefly removed the u8 path on a wrong dead-code
-    # premise).
-    if binned.dtype == jnp.uint8:
-        blk, selt, prec = jnp.bfloat16, jnp.bfloat16, None
-    else:
-        blk, selt, prec = jnp.float32, jnp.float32, jax.lax.Precision.HIGHEST
-    sel = (
-        tree.feature[None, :] == jnp.arange(W)[:, None]
-    ).astype(selt)  # [W, max_nodes]
-    fcols = jax.lax.dot_general(
-        binned.astype(blk), sel, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        **({"precision": prec} if prec is not None else {}),
-    )  # [N, max_nodes] — every node's split column for every doc
-
-    for _ in range(max_depth):
-        own = (node[:, None] == ids[None, :]).astype(jnp.float32)
-        val = jnp.sum(own * fcols, axis=1)
-        thr = _onehot_read(own, tree.threshold_bin)
-        left = _onehot_read(own, tree.left)
-        right = _onehot_read(own, tree.right)
-        leaf = _onehot_read(own, tree.is_leaf.astype(jnp.int32))
-        nxt = jnp.where(val <= thr, left, right)
-        node = jnp.where(leaf > 0, node.astype(jnp.float32), nxt).astype(
-            jnp.int32
-        )
-    return node
+def leaf_values(node: jnp.ndarray, tree: Tree) -> jnp.ndarray:
+    """``tree.leaf_value[node]`` for every doc: f32 [N] — the reference's
+    leaf-output read after routing (rtnode.h:134-152 returns the reached
+    leaf's avglabel); negative node ids clamp to 0."""
+    return tree.leaf_value[jnp.maximum(node, 0)]
 
 
 def tree_delta_binned(
@@ -249,23 +119,12 @@ def tree_delta_binned(
 ) -> jnp.ndarray:
     """Leaf value reached by every doc, in bin space: f32 [N].
 
-    The gather-free scoring delta used on every per-iteration validation
-    rescore (mart.cc:361-366's per-tree valid update) and DART's
-    dropped-set/full rescores (dart.cc:552-558): matmul descent + one-hot
-    leaf read when the feature axis is whole; under feature sharding the
-    owner-psum descent routes (local blocks can't one-hot globally) and
-    only the leaf read goes one-hot.  On CPU (the test suite's virtual
-    devices) the gather path stays: the one-hot builds are O(N x nodes)
-    per level there with none of the TPU gather penalty.  Both paths are
-    bitwise-equal (tests/test_trees.py), so the dispatch is invisible."""
-    if feat_axis is None:
-        if jax.default_backend() == "tpu":
-            node = descend_tree_binned_matmul(binned, tree, max_depth)
-            return leaf_values_onehot(node, tree)
-        node = descend_tree_binned(binned, tree, max_depth)
-        return tree.leaf_value[node]
+    The scoring delta of every per-iteration validation rescore
+    (mart.cc:361-366's per-tree valid update) and DART's dropped-set/full
+    rescores (dart.cc:552-558).  Under feature sharding (``feat_axis``)
+    the owner-psum descent routes."""
     node = descend_tree_binned(binned, tree, max_depth, feat_axis)
-    return leaf_values_onehot(node, tree)
+    return leaf_values(node, tree)
 
 
 @partial(

@@ -1,6 +1,6 @@
 """CLEAVER — ensemble pruning + line-search re-weighting.
 
-TPU-native re-design of ``Cleaver`` (src/optimization/post_learning/cleaver/
+Re-design of ``Cleaver`` (src/optimization/post_learning/cleaver/
 cleaver.cc:166-418) and its 8 pruning strategies (random_pruning.cc,
 random_adv_pruning.cc, low_weights_pruning.cc, skip_pruning.cc,
 last_pruning.cc, quality_loss_pruning.cc, quality_loss_adv_pruning.cc,
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from quickrank_tpu.data.dataset import Dataset, shard_and_pad
 from quickrank_tpu.learning.linear import (
     LineSearch,
+    matmul_highest,
     eval_padded_local,
     padded_specs,
     shard_padded,
@@ -97,7 +98,7 @@ class _PartialEval:
                 return jax.jit(f)
 
         def base_f(w, X):
-            return X @ w
+            return matmul_highest(X, w)
 
         def metric_f(scores, padded):
             return eval_padded_local(metric, padded, scores, axis)
@@ -117,7 +118,7 @@ class _PartialEval:
 
         def mask_metrics_f(base, w, masks, X, padded):
             # cand_b = base - X @ (w * m_b): one [N, T] x [T, B] matmul
-            delta = X @ (w[:, None] * masks.T)
+            delta = matmul_highest(X, w[:, None] * masks.T)
             return jax.vmap(
                 lambda d: eval_padded_local(metric, padded, base - d, axis)
             )(delta.T)

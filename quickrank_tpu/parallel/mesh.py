@@ -1,4 +1,4 @@
-"""Device-mesh helpers: query-sharded data parallelism over ICI.
+"""Device-mesh helpers: query-sharded data parallelism.
 
 The reference has no distributed layer at all (SURVEY.md §2.9) — its only
 parallelism is intra-node OpenMP.  Here the equivalent first-class component:
@@ -28,16 +28,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 DATA_AXIS = "data"
 FEAT_AXIS = "feat"
 
-try:  # jax >= 0.4.35 promotes shard_map out of experimental
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-        return _shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=check_rep,
-        )
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
+    """``jax.shard_map`` with replication checking off by default (the
+    step bodies return psum'd values the checker cannot prove
+    replicated)."""
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=check_rep,
+    )
 
 
 #: (fn, mesh) -> jitted shard_map wrapper; jax.jit then caches per
@@ -50,7 +48,7 @@ def score_rows_sharded(fn, feats, model_tree, mesh: Mesh):
     EVERY axis of ``mesh`` (inference has no cross-doc coupling, so a 2-D
     training mesh is consumed as one flat doc axis), replicate the model
     pytree, run ``fn(local_feats, model_tree) -> [n_local]`` per device,
-    reassemble.  No collectives — pure fan-out over ICI-attached chips.
+    reassemble.  No collectives — pure fan-out over the devices.
 
     The reference's scoring parallelism is an OpenMP loop over docs
     (ensemble.cc:96-123); this is its mesh equivalent, and the only
@@ -130,8 +128,8 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> Mesh:
-    """Multi-host initialization: start the jax.distributed runtime (ICI
-    within a slice, DCN across hosts) and return the global data mesh.
+    """Multi-host initialization: start the jax.distributed runtime and
+    return the global data mesh (never run on GPUs yet).
 
     This is the framework's whole "communication backend" — the collectives
     themselves are the standard XLA psum/all-gather inserted by shard_map

@@ -1,4 +1,7 @@
-"""Multi-host (DCN) data path: per-process ingestion + global-array assembly.
+"""Multi-host data path: per-process ingestion + global-array assembly.
+
+Never run on GPUs: only CPU processes on one machine have exercised it
+(tests/test_multihost.py).
 
 The reference is single-process (SURVEY.md §2.9) — this is the framework's
 "collective backend" deliverable.  Each process loads ONLY its own query
@@ -7,7 +10,7 @@ file), builds its local padded shards, and the step tensors are assembled
 into global ``jax.Array``s with ``jax.make_array_from_process_local_data``
 — no process ever materializes the full dataset.  Training then runs the
 UNCHANGED jitted step: under ``shard_map`` the histogram/metric ``psum``s
-ride ICI within a slice and DCN across hosts; split decisions stay
+span every process's devices; split decisions stay
 replicated because they derive only from the psum'd histograms.
 
 Global agreements between processes (all via
@@ -135,8 +138,7 @@ def build_train_data_multihost(
 
     Meshes: 1-D ``(data,)`` or 2-D ``(data, feat)``.  For 2-D every
     process must own whole data rows (its local devices span the full
-    feature axis), the standard DCN-outer / ICI-inner layout — feature
-    collectives then ride ICI only."""
+    feature axis) — feature collectives then stay inside a process."""
     from jax.experimental import multihost_utils
 
     from quickrank_tpu.learning.mart import TrainData

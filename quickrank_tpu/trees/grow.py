@@ -1,6 +1,6 @@
 """Best-first regression-tree growth as one jittable fixed-shape loop.
 
-TPU-native re-design of ``RegressionTree::fit`` / ``split``
+Re-design of ``RegressionTree::fit`` / ``split``
 (src/learning/tree/rt.cc:49-140, :208-355): the deviance max-heap becomes a
 masked argmax over a dense per-node deviance vector; per-node sample-id lists
 become a ``node_of_doc`` assignment vector updated in place; child histograms
@@ -16,10 +16,10 @@ Reference semantics preserved:
   * per-split feature subsampling for max_features != 1 (rt.cc:222-244);
   * doc routing ``x[f] <= threshold`` (rt.cc:330).
 
-Sharded training: pass ``axis_name`` — each chip holds a shard of the docs,
+Sharded training: pass ``axis_name`` — each device holds a shard of the docs,
 the left-child histogram is ``psum``-reduced, and every split decision (being
-derived from the reduced histogram) is replicated across chips.  This is the
-ICI all-reduce of SURVEY.md §2.9.
+derived from the reduced histogram) is replicated across devices.  This is the
+all-reduce of SURVEY.md §2.9.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quickrank_tpu.utils import struct
 
-from quickrank_tpu.ops.histogram import doc_channels, masked_histogram_t
+from quickrank_tpu.ops.histogram import doc_channels, masked_histogram
 from quickrank_tpu.trees.structs import Tree
 
 # Plain float (not a jnp array): module import must not initialize a backend.
@@ -50,21 +50,13 @@ class GrowConfig:
     #: best split is resolved by a tiny all_gather of per-shard candidates.
     feat_axis: str | None = None
     feat_axis_size: int = 1
-    #: optional depth cap (0 = unbounded, the reference's behavior).  Depth-
-    #: capped trees embed into perfect binary trees, unlocking the batched
-    #: traversal-free scoring kernel for non-oblivious ensembles.
+    #: optional depth cap (0 = unbounded, the reference's behavior)
     max_depth: int = 0
     #: bottom-up leaf-merge pruning (rt.cc:93-152): 0 = off.  After growth,
     #: nodes pop deepest-first (ties by deviance); a popped node's parent is
     #: collapsed into a leaf while n_nodes <= (2^(depth+1)-1) * factor, and
     #: the pass stops at the first violation.
     collapse_factor: float = 0.0
-    #: number of REAL feature columns (0 = all of binned's columns).  The
-    #: clustered grower packs per-doc payload bytes into binned's pad
-    #: columns, which breaks the "pad columns bin to 0" invariant the gain
-    #: scan otherwise relies on — it masks columns >= num_real_features
-    #: statically instead (trees/grow_cluster.py).
-    num_real_features: int = 0
 
     @property
     def max_nodes(self) -> int:
@@ -176,14 +168,12 @@ def fit_tree(
     if key is None:
         key = jax.random.PRNGKey(0)
 
+    # premasked channel rows built ONCE per tree; each split passes only
+    # its doc subset, which the histogram pass reads as a node id
     chan = doc_channels(grad, doc_mask)
-    # channel-major + doc_mask select ONCE per tree; per-split node
-    # selection then happens inside the TPU kernel from an [N] pos row
-    # (masked_histogram_t) instead of an [N, C] select per split
-    chan_t = jnp.where(doc_mask[None, :], chan.T, 0.0)
 
     def hist_of(mask):
-        h = masked_histogram_t(binned, chan_t, mask, B)
+        h = masked_histogram(binned, chan, mask, B)
         if axis_name is not None:
             h = jax.lax.psum(h, axis_name)
         return h
@@ -328,22 +318,9 @@ def fit_tree(
             tree, final.deviance, final.depth, final.parent, final.n_nodes,
             cfg.collapse_factor, max_nodes,
         )
-        import jax as _jax
+        from quickrank_tpu.ops.scoring import descend_tree_binned
 
-        from quickrank_tpu.ops.scoring import (
-            descend_tree_binned,
-            descend_tree_binned_matmul,
-        )
-
-        # same backend dispatch as tree_delta_binned: the matmul descent
-        # avoids TPU per-doc gathers (~15-20 ms each at MSLR scale) and is
-        # bitwise-equal (tests/test_trees.py)
-        desc = (
-            descend_tree_binned_matmul
-            if _jax.default_backend() == "tpu"
-            else descend_tree_binned
-        )
-        node_of_doc = desc(binned, tree, cfg.nleaves)
+        node_of_doc = descend_tree_binned(binned, tree, cfg.nleaves)
     return tree, node_of_doc
 
 
@@ -407,25 +384,8 @@ def _collapse_leaves(
 
 
 def segment_sums(index: jnp.ndarray, values: jnp.ndarray, num_slots: int):
-    """sum_n values[n, c] into slot index[n]: [num_slots, C].
-
-    On TPU this reuses the MXU histogram kernel (a one-column feature matrix
-    with ``num_slots`` bins) instead of a sort-based scatter.
-    """
-    from quickrank_tpu.ops.histogram import _on_tpu
-
-    if _on_tpu():
-        from quickrank_tpu.ops.pallas_histogram import histogram_pallas
-
-        # Pin feat_group=16: there is ONE feature column here, so the
-        # sweep-tuned default (32, for 136+-feature histogram passes) would
-        # just double this call's dead one-hot padding.  G=1 is NOT usable:
-        # Mosaic scoped-vmem OOMs on the 1-lane block layout (57 MB stack
-        # alloc for a [N,1] operand, observed on v5e 2026-08-19).
-        h = histogram_pallas(
-            index[:, None].astype(jnp.int32), values, num_slots, feat_group=16
-        )
-        return h[0]  # [num_slots, C]
+    """sum_n values[n, c] into slot index[n]: [num_slots, C] (one scatter-
+    add; out-of-range indices clamp into the edge slots)."""
     C = values.shape[-1]
     out = jnp.zeros((num_slots, C), jnp.float32)
     return out.at[jnp.clip(index, 0, num_slots - 1)].add(

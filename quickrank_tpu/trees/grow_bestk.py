@@ -1,14 +1,12 @@
-"""Best-k regression-tree growth: best-first priority, packed MXU passes.
+"""Best-k regression-tree growth: best-first priority, packed histogram passes.
 
 The reference grows strictly one split per histogram pass: pop the
 max-deviance leaf, split it, push its children (src/learning/tree/
 rt.cc:49-90); its OpenMP parallelism is over features *within* one split
-(rt.cc:209-313).  On TPU the histogram pass is a packed MXU kernel that
-computes up to ~10 nodes' child histograms in ONE dispatch
-(ops/pallas_histogram.py::_node_kernel — the level-wise grower proves it),
-so exact best-first's ``nleaves - 1`` sequential dispatches leave most of
-the kernel's channel capacity idle and the dispatch chain itself becomes
-the critical path (measured 0.42 s/tree vs level-wise 0.227 at MSLR scale).
+(rt.cc:209-313).  One histogram pass (ops/histogram.py::node_histograms)
+builds several nodes' child histograms at once, so exact best-first's
+``nleaves - 1`` sequential passes make the pass chain itself the critical
+path.
 
 This grower pops the top-k highest-deviance heap leaves per round and
 computes ALL their left-child histograms in one packed pass, parallelizing
@@ -26,8 +24,7 @@ child first.  Child deviance never *exceeds* the parent's (sum g^2 splits
 additively and (sum g)^2/c is superadditive by Cauchy-Schwarz), so the
 difference is only in WHICH leaves consume the budget, never in how any
 individual split is chosen.  ``k=1`` reproduces trees/grow.py::fit_tree
-exactly (tests/test_bestk.py pins it); the quality delta at k > 1 is
-measured in docs/sweeps/ (BENCHMARKS.md "best-k growth").
+exactly (tests/test_bestk.py pins it).
 
 Sharding contract matches fit_tree: ``axis_name`` psums histograms over the
 doc/query axis; ``cfg.feat_axis`` resolves per-leaf split candidates via a
@@ -194,8 +191,7 @@ def fit_tree_bestk(
         b_ids = jnp.where(allowed, s.n_nodes + 2 * prefix + 1, max_nodes)
         ids_w = jnp.where(allowed, sel_ids, max_nodes)
 
-        # per-doc rank among the allowed leaves ([N, k] compares — never an
-        # [N]-gather from a table, which the TPU serializes; CLAUDE.md)
+        # per-doc rank among the allowed leaves ([N, k] compares)
         own = (s.node_of_doc[:, None] == sel_ids[None, :]) & allowed[None, :]
         in_sel = jnp.any(own, axis=1)
         pos_sel = jnp.where(
@@ -292,19 +288,7 @@ def fit_tree_bestk(
             tree, final.deviance, final.depth, final.parent, final.n_nodes,
             cfg.collapse_factor, max_nodes,
         )
-        import jax as _jax
+        from quickrank_tpu.ops.scoring import descend_tree_binned
 
-        from quickrank_tpu.ops.scoring import (
-            descend_tree_binned,
-            descend_tree_binned_matmul,
-        )
-
-        # backend dispatch as in trees/grow.py: gather-free on TPU,
-        # bitwise-equal either way (tests/test_trees.py)
-        desc = (
-            descend_tree_binned_matmul
-            if _jax.default_backend() == "tpu"
-            else descend_tree_binned
-        )
-        node_of_doc = desc(binned, tree, cfg.nleaves)
+        node_of_doc = descend_tree_binned(binned, tree, cfg.nleaves)
     return tree, node_of_doc

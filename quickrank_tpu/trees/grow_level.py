@@ -1,15 +1,14 @@
-"""Level-wise (depth-wise) tree growth — the TPU throughput mode.
+"""Level-wise (depth-wise) tree growth — the throughput mode.
 
 A performance-oriented alternative to the reference-faithful best-first
 grower (trees/grow.py): all fringe nodes of a level split in ONE batched
-histogram computation (node-packed channels, ops/pallas_histogram.py), so a
+histogram computation (ops/histogram.py::node_histograms), so a
 depth-D tree costs ~D histogram passes instead of one per split — about 4x
 fewer passes for 16-leaf trees.  Unlike oblivious trees, every node still
 chooses its OWN (feature, threshold); unlike best-first, the tree is grown
 breadth-first to a fixed depth, the standard depth-wise GBDT regime
 (XGBoost's default).  This mode is an extension — the reference grows
-best-first only (rt.cc:49-90) — and produces depth-capped trees that
-automatically use the perfect-tree scoring kernel.
+best-first only (rt.cc:49-90) — and produces depth-capped trees.
 
 Gain/minls/routing semantics are identical to the best-first grower.
 
@@ -18,8 +17,7 @@ separate per-leaf aggregation pass (leaf_outputs -> segment_sums): a split
 node's left-child sums are exactly the cumulative histogram entries at its
 chosen (feature, bin) — the docs with bin <= threshold_bin — and the right
 child is total - left; a node that stops splitting keeps its own totals.
-This drops one histogram kernel dispatch (+ a 174 MB one-column pad) and
-one psum per boosting iteration.  The Newton denominator (sum of lambda
+This drops one aggregation pass and one psum per boosting iteration.  The Newton denominator (sum of lambda
 weights, rt.cc:186-207) rides along as an extra histogram channel in place
 of the squared-gradient channel, which only the best-first deviance
 priority needs.
@@ -44,10 +42,10 @@ _EPS = 2.220446049250313e-16
 def _route_bits(binned, f_sel, t_star, pos, n_nodes):
     """Per-doc routing bit ``binned[n, f_sel[pos[n]]] > t_star[pos[n]]``.
 
-    Two exact contractions instead of elementwise gathers over the doc axis
-    (which the TPU serializes ~50x slower): a bf16 one-hot matmul picks each
-    node's split-feature column on the MXU, and a [N, nodes] one-hot select
-    picks each doc's own node's value and threshold.  bf16 holds integers
+    Two exact contractions instead of elementwise gathers over the doc
+    axis (not yet timed against a gather on the GPU): a bf16 one-hot
+    matmul picks each node's split-feature column, and a [N, nodes]
+    one-hot select picks each doc's own node's value and threshold.  bf16 holds integers
     <= 256 exactly, so the u8 wire uses one plane; the u16 wire (> 256
     bins) contracts its hi and lo bytes separately — each product is exact
     and the f32 recombination 256*hi + lo is exact below 2**24."""

@@ -1,6 +1,6 @@
 """Oblivious (symmetric) regression trees: level-synchronous fit + dense SoA.
 
-TPU-native re-design of ``ObliviousRT`` (src/learning/tree/ot.cc:32-201):
+Re-design of ``ObliviousRT`` (src/learning/tree/ot.cc:32-201):
 one (feature, threshold) is chosen per depth level by maximizing the gain
 summed across every fringe node, then all nodes split synchronously.  The
 per-level histogram walk becomes one batched ``node_histograms`` scatter-add
@@ -27,7 +27,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quickrank_tpu.utils import struct
 
 from quickrank_tpu.ops.histogram import node_histograms
 

@@ -1,8 +1,8 @@
-"""QuickScorer-style bitvector scoring, re-designed for the MXU.
+"""QuickScorer-style bitvector scoring as matrix products.
 
 The reference family's namesake algorithm (Lucchese et al., "QuickScorer:
 a fast algorithm to rank documents with additive ensembles of regression
-trees", SIGIR 2015; the /root/reference repo ships only the generated-C
+trees", SIGIR 2015; the reference repo ships only the generated-C
 scorers, src/io/generate_*.cc) evaluates a tree WITHOUT walking it: every
 internal node carries a bitvector marking the leaves that become
 unreachable when its test is false (= the leaves of its left subtree);
@@ -15,19 +15,20 @@ it), and every leaf strictly left of it is excluded by the lowest common
 ancestor with the exit leaf (which tested false).  So leftmost
 non-excluded == exit leaf.
 
-On TPU the bitvector AND becomes a matmul: with ``excl[n, l] = 1`` iff
+Here the bitvector AND becomes a matmul: with ``excl[n, l] = 1`` iff
 leaf ``l`` (in left-to-right order) lies in the left subtree of internal
 node ``n``,
 
     false_bits = (X @ onehot(node features)) > thresholds    # [N, I]
-    excluded   = false_bits @ excl                           # [N, L] MXU
+    excluded   = false_bits @ excl                           # [N, L]
     exit leaf  = leftmost l with excluded[l] == 0
 
 — no per-level loop at all, so the cost is independent of tree DEPTH
 (the per-level descent pays 15 fused passes for a best-first 16-leaf
 tree).  Exact: {0,1} operands are exact in bf16 and the exclusion counts
-(<= I) accumulate exactly in f32; the feature column select rides the
-same one-nonzero-product argument as ops/scoring.py::descend_tree_matmul.
+(<= I) accumulate exactly in f32; the feature column select is an f32
+dot at HIGHEST precision with one nonzero product per output element, so
+it returns the feature bit for bit (a TF32 select would misroute).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quickrank_tpu.utils import struct
 
 from quickrank_tpu.ops.scoring import kahan_add
 
@@ -164,11 +165,8 @@ def ensemble_to_qs(ens, space: str = "value") -> QSEnsemble:
     )
 
 
-#: trees evaluated per scan step: 16-leaf blocks fill 8 x 16 = 128 VPU
-#: lanes (a lone [N, 16] pass wastes 7/8 of every vector register);
-#: swept on chip 2026-08-20 (scripts/bench_deepscore.py): 8 -> 47.8 ms,
-#: see BENCHMARKS.md.  Env override for sweeps only.
-QS_GROUP = int(__import__("os").environ.get("QRTPU_QS_GROUP", "8"))
+#: trees evaluated per scan step (not yet tuned on the GPU)
+QS_GROUP = 8
 
 
 @jax.jit
@@ -177,8 +175,7 @@ def score_qs(features: jnp.ndarray, qs: QSEnsemble) -> jnp.ndarray:
 
     A scan over GROUPS of QS_GROUP trees; per group: one column-select
     dot, one broadcast compare, one block-diagonal [N, G*I] @ [G*I, G*L]
-    exclusion matmul (the off-diagonal zero MACs are free next to the
-    lane-utilization win), and a per-tree leftmost-survivor reduction —
+    exclusion matmul, and a per-tree leftmost-survivor reduction —
     all depth-independent.  The cross-tree sum stays a SEQUENTIAL
     per-tree Kahan accumulation (a small [N, G] fori), so scores are
     bitwise those of score_ensemble's one-tree-at-a-time scan."""

@@ -1,6 +1,6 @@
 """Dense tensor (SoA) tree + ensemble containers.
 
-TPU-native replacement of the pointer-based ``RTNode`` tree
+Replacement of the pointer-based ``RTNode`` tree
 (include/learning/tree/rtnode.h:37) and the growable ``Ensemble`` of
 ``(root*, weight, maxlabel)`` entries (include/learning/tree/ensemble.h:28).
 Trees are fixed-size arrays over a padded node axis so an ensemble is one
@@ -14,8 +14,11 @@ and ``leaf_value=0`` so they are harmless if ever reached (they are not).
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from quickrank_tpu.utils import struct
 
 
 @struct.dataclass
@@ -129,3 +132,33 @@ class EnsembleTensors:
     def tree_mask(self) -> jnp.ndarray:
         """bool [T]: live tree slots."""
         return jnp.arange(self.capacity) < self.num_trees
+
+
+def tree_depths(ens, cap: Optional[int] = None) -> np.ndarray:
+    """Max depth of each live tree in an EnsembleTensors.
+
+    Iterative (explicit worklist): a degenerate chain-shaped tree from an
+    XML import is bounded by the node budget, not Python's process-global
+    recursion limit (rtnode.h:134's recursion rides the C++ stack; ours must
+    not ride sys.setrecursionlimit).  With ``cap``, a tree found deeper than
+    ``cap`` reports ``cap + 1`` without walking its remaining nodes."""
+    T = int(ens.num_trees)
+    left = np.asarray(ens.left)
+    right = np.asarray(ens.right)
+    isleaf = np.asarray(ens.is_leaf)
+
+    def depth(t):
+        maxd = 0
+        stack = [(0, 0)]
+        while stack:
+            i, d = stack.pop()
+            if isleaf[t, i]:
+                maxd = max(maxd, d)
+                continue
+            if cap is not None and d >= cap:
+                return cap + 1
+            stack.append((int(left[t, i]), d + 1))
+            stack.append((int(right[t, i]), d + 1))
+        return maxd
+
+    return np.asarray([depth(t) for t in range(T)])

@@ -1,8 +1,8 @@
 """Core scalar types and constants.
 
-TPU-native counterpart of the reference's ``include/types.h:28-35``
+Counterpart of the reference's ``include/types.h:28-35``
 (Label=float, Score=double, Feature=float, QueryID=uint, MetricScore=double).
-On TPU the compute dtype is float32 (the MXU/VPU native f32 path); metric
+The device compute dtype is float32; metric
 accumulation stays float32 on device and float64 on host where it matters.
 """
 

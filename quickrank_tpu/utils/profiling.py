@@ -2,7 +2,7 @@
 
 The reference's observability is std::chrono phase prints (mart.cc:216-258,
 svml.cc:190-196) plus an opt-in traversal counter (rtnode.h:53-56).  The
-TPU-native equivalents: wall-clock phase timers for host-side orchestration
+Equivalents: wall-clock phase timers for host-side orchestration
 and ``jax.profiler`` traces for device timelines (viewable in TensorBoard /
 Perfetto).
 """

@@ -60,66 +60,12 @@ def test_dart_default(splits):
     assert d.evaluate(test, Ndcg(10)) >= 0.55
 
 
-def test_dart_qs_delta_matches_scan(splits, monkeypatch):
-    """The QS-table dropped-set delta (the TPU single-controller default;
-    QRTPU_DART_QS_DELTA=force exercises it on CPU) is the descent scan's
-    delta up to summation association only.
-
-    Per-tree the two are BITWISE identical (bin-space QS routing and leaf
-    reads equal the descent, tests/test_qs.py); the weighted multi-tree
-    sum differs by ~1 ulp (Kahan in slot order vs plain sum in drop
-    order), which tree fitting then amplifies chaotically into different
-    — but equally good — models, exactly like the sharded-vs-single
-    histogram association (tests/test_sharding.py).  So the contract is:
-    deltas equal to ulp, training curves equal, final quality equal."""
-    import jax.numpy as jnp
-    from quickrank_tpu.learning.mart import TrainData
-    from quickrank_tpu.ops.scoring import tree_delta_binned
-    from quickrank_tpu.trees.qs import ensemble_to_qs, score_qs
-
-    train, valid, test = splits
-    out = {}
-    for mode in ("0", "force"):
-        monkeypatch.setenv("QRTPU_DART_QS_DELTA", mode)
-        d = Dart(
-            ntrees=10, nleaves=8, nthresholds=32, rate_drop=0.5, seed=3,
-            esr=0,
-        )
-        info = d.learn(train, valid, Ndcg(10), verbose=False)
-        out[mode] = (np.asarray(info["train"]), d.evaluate(test, Ndcg(10)), d)
-    # same training trajectory and final quality (not the same bits)
-    np.testing.assert_allclose(out["0"][0], out["force"][0], atol=2e-4)
-    assert abs(out["0"][1] - out["force"][1]) < 5e-3
-
-    # the hard guarantee: on the scan-trained model, per-tree QS deltas
-    # are bitwise the descent's, and a weighted dropped-set delta agrees
-    # to float32 ulp
-    ens = out["0"][2].ensemble
-    binned = TrainData.build(train, 32).step.binned
-    qs = ensemble_to_qs(ens, space="bin")
-    w = np.asarray(ens.weight)
-    dropped = [0, 2, 5]
-    acc = jnp.zeros((binned.shape[0],), jnp.float32)
-    for t in dropped:
-        onew = np.zeros(qs.weight.shape[0], np.float32)
-        onew[t] = 1.0
-        np.testing.assert_array_equal(
-            np.asarray(score_qs(binned, qs.replace(weight=jnp.asarray(onew)))),
-            np.asarray(tree_delta_binned(binned, ens.tree(t), 16)),
-        )
-        acc = acc + w[t] * tree_delta_binned(binned, ens.tree(t), 16)
-    wvec = np.zeros(qs.weight.shape[0], np.float32)
-    wvec[dropped] = w[dropped]
-    dq = np.asarray(score_qs(binned, qs.replace(weight=jnp.asarray(wvec))))
-    np.testing.assert_allclose(np.asarray(acc), dq, rtol=3e-7, atol=1e-7)
-
-
 @pytest.mark.parametrize("growth", ["level", "bestk"])
 def test_dart_alternate_growers(splits, growth):
     """DART composes with the level-wise and best-k growers through the
     shared Mart-family dispatch (_fit_and_assign): trains, improves, and
     scores sanely.  The reference only ever grows best-first
-    (dart.cc:318-323); growth modes are a TPU-side extension."""
+    (dart.cc:318-323); growth modes are an extension."""
     train, valid, test = splits
     d = Dart(
         ntrees=12, nleaves=8, nthresholds=32, rate_drop=0.15, seed=1,

@@ -127,7 +127,7 @@ def test_bestk_splits_are_per_node_argmax(problem, k):
 
 def test_bestk_lambdamart_quality():
     """growth='bestk' must track growth='best' NDCG on a learnable fixture —
-    the measured trade of batching splits (docs/sweeps has the full sweep)."""
+    the trade of batching splits stays small."""
     train, valid, _ = make_train_valid_test(num_queries=(48, 16, 16))
     res = {}
     for growth in ("best", "bestk"):

@@ -1,4 +1,4 @@
-"""End-to-end boosting quality tests — the TPU-build analog of the
+"""End-to-end boosting quality tests — the analog of the
 reference's integration tests with NDCG floors (test-mart.cc:45-137,
 test-lambdamart.cc:33-137), run on the deterministic synthetic LETOR-style
 fixture (the MSN1 5k sample is not redistributable here)."""

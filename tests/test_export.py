@@ -1,4 +1,4 @@
-"""AOT scorer export (io/export.py) — the TPU-native counterpart of the
+"""AOT scorer export (io/export.py) — the counterpart of the
 reference's code generators (SURVEY §2.2): export -> deserialize -> call
 must reproduce the model's scores without the model object, across batch
 sizes (symbolic batch dim), for tree ensembles and linear models."""

@@ -1,4 +1,4 @@
-"""Simulated multi-host (DCN) training: two jax.distributed CPU processes
+"""Simulated multi-host training: two jax.distributed CPU processes
 on localhost, per-process data ingestion, global-array assembly — asserts
 sharded-equals-single-device for a small MART/LambdaMART run.
 
@@ -51,7 +51,7 @@ from quickrank_tpu.parallel.multihost import (
 
 if mode == "2d":
     # (data, feat) with whole data rows per process: feature collectives
-    # stay intra-process (the ICI-inner / DCN-outer layout)
+    # stay intra-process (fast links inside a host, slow ones across)
     mesh = Mesh(
         np.asarray(jax.devices()).reshape(nproc, 2), ("data", "feat")
     )

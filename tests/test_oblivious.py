@@ -132,27 +132,35 @@ def test_obliviouslambdamart_trains(splits):
     assert info["train"][-1] >= 0.55
 
 
-def test_pallas_scorer_matches_xla(obv_model, splits):
-    """The Pallas fast path (interpret mode on CPU) must agree with the
-    pure-XLA bit-OR scorer."""
-    from quickrank_tpu.ops.pallas_oblivious import score_oblivious_pallas
+def test_leaf_indices_match_host_walk(obv_model, splits):
+    """oblivious_leaf_indices (the routing score_oblivious sums over)
+    equals a host walk of the level tables, and the scores are the
+    weighted leaf values at those indices."""
+    from quickrank_tpu.ops.oblivious import oblivious_leaf_indices
 
     _, _, test = splits
     om, _ = obv_model
     obl = om.oblivious_ensemble()
-    feats = jnp.asarray(test.features[:256])
-    ref = np.asarray(score_oblivious(feats, obl))
-    got = np.asarray(
-        score_oblivious_pallas(feats, obl, tile_n=128, interpret=True)
+    X = np.asarray(test.features[:256])
+    fid, thr = np.asarray(obl.fid), np.asarray(obl.thr)
+    T, D = fid.shape
+    ref = np.zeros((X.shape[0], T), np.int64)
+    for d in range(D):
+        ref = ref * 2 + (X[:, fid[:, d]] > thr[None, :, d])
+    got = np.asarray(oblivious_leaf_indices(jnp.asarray(X), obl))
+    np.testing.assert_array_equal(got, ref)
+    live = np.arange(T) < int(obl.num_trees)
+    w = np.asarray(obl.weight) * live
+    expect = (np.asarray(obl.leaf)[np.arange(T)[None, :], ref] * w).sum(1)
+    np.testing.assert_allclose(
+        np.asarray(score_oblivious(jnp.asarray(X), obl)), expect, atol=1e-5
     )
-    np.testing.assert_allclose(ref, got, atol=1e-5)
 
 
-def test_pallas_scorer_threshold_equality(rng):
+def test_scorer_threshold_equality(rng):
     """Feature values exactly equal to thresholds must route left (v <= t),
-    exactly like the reference comparison (rt.cc:330) — checks that the
-    three-way bf16 split reconstruction is bit-exact."""
-    from quickrank_tpu.ops.pallas_oblivious import score_oblivious_pallas
+    exactly like the reference comparison (rt.cc:330)."""
+    from quickrank_tpu.ops.oblivious import oblivious_leaf_indices
     from quickrank_tpu.trees.oblivious import ObliviousEnsemble
 
     F, T, D = 8, 4, 2
@@ -172,8 +180,12 @@ def test_pallas_scorer_threshold_equality(rng):
     for t in range(T):
         for d in range(D):
             X[t * D + d, fid[t, d]] = thr[t, d]
-    ref = np.asarray(score_oblivious(jnp.asarray(X), ens))
-    got = np.asarray(
-        score_oblivious_pallas(jnp.asarray(X), ens, tile_n=128, interpret=True)
+    idx = np.asarray(oblivious_leaf_indices(jnp.asarray(X), ens))
+    for t in range(T):
+        for d in range(D):
+            bit = (idx[t * D + d, t] >> (D - 1 - d)) & 1
+            assert bit == 0, (t, d)  # equal -> not greater -> left
+    expect = leaf[np.arange(T)[None, :], idx].sum(1)
+    np.testing.assert_allclose(
+        np.asarray(score_oblivious(jnp.asarray(X), ens)), expect, atol=1e-6
     )
-    np.testing.assert_allclose(ref, got, atol=1e-6)

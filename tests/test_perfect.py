@@ -1,4 +1,4 @@
-"""Perfect-tree embedding + generalized traversal-free scorer tests."""
+"""Depth-capped best-first growth and tree-depth measurement."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -6,9 +6,7 @@ import pytest
 
 from quickrank_tpu.learning import LambdaMart, Mart
 from quickrank_tpu.metrics import Ndcg
-from quickrank_tpu.ops.pallas_perfect import score_perfect_pallas
-from quickrank_tpu.ops.scoring import score_ensemble
-from quickrank_tpu.trees.perfect import ensemble_to_perfect, tree_depths
+from quickrank_tpu.trees.structs import tree_depths
 
 
 def _chain_ensemble(n: int):
@@ -68,59 +66,16 @@ def test_quality_with_depth_cap(splits):
     assert info["train"][-1] >= 0.70  # parity-ish with unbounded trees
 
 
-def test_embedding_scores_match_descent(capped_model, splits):
-    _, _, test = splits
-    pe = ensemble_to_perfect(capped_model.ensemble, max_depth=4)
-    assert pe is not None
-    feats = jnp.asarray(test.features[:128])
-    ref = np.asarray(score_ensemble(feats, capped_model.ensemble, max_depth=16))
-    # interpret-mode pallas on CPU, through the public entry point
-    from quickrank_tpu.ops.pallas_perfect import score_perfect_pallas
-
-    got = np.asarray(
-        score_perfect_pallas(
-            feats, pe, tile_n=128, tree_block=int(pe.fid.shape[0]),
-            interpret=True,
-        )
-    )
-    np.testing.assert_allclose(ref, got, atol=1e-4)
-
-
-def test_deep_trees_refuse_embedding():
-    """ensemble_to_perfect must refuse models deeper than max_depth —
-    unconditionally exercised with a constructed depth-8 chain (a trained
-    model's depth is data-dependent and could stay <= 5, silently skipping
-    the refusal path)."""
-    ens = _chain_ensemble(8)  # depth 8 > 5
-    assert ensemble_to_perfect(ens, max_depth=5) is None
-    # and a conforming bound embeds it
-    assert ensemble_to_perfect(ens, max_depth=8) is not None
-
-
-def test_embedding_replicates_collapsed_leaves(capped_model):
-    pe = ensemble_to_perfect(capped_model.ensemble, max_depth=4)
-    thr = np.asarray(pe.thr)
-    # pass-through nodes (collapsed/asymmetric subtrees embedded in
-    # perfect form) carry the FLT_MAX sentinel — every doc routes left;
-    # real split nodes carry finite thresholds.  The capped model has
-    # collapsed leaves, so pass-throughs MUST exist.
-    passthrough = thr >= np.float32(3.4028235e38)
-    assert passthrough.any()
-    assert np.isfinite(thr[~passthrough]).all()
-    assert np.isfinite(np.asarray(pe.leaf)).all()
-
-
 def test_chain_tree_depth_is_iterative():
     """A degenerate chain-shaped tree (every split's right child is a leaf —
     the shape an adversarial XML import produces) must be measured without
     recursion: depth >> sys recursion limits may appear in imported models
-    and must simply disable the fast scorer, not crash (VERDICT r2 item 8)."""
+    and must not crash (VERDICT r2 item 8)."""
     import sys
 
     n = max(4 * sys.getrecursionlimit(), 8192)  # far past any Python stack
     ens = _chain_ensemble(n)
     # cap-bounded probe: must not walk the whole chain, let alone recurse
     assert tree_depths(ens, cap=5)[0] == 6
-    assert ensemble_to_perfect(ens, max_depth=5) is None
     # uncapped exact depth still works iteratively
     assert tree_depths(ens)[0] == n

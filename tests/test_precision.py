@@ -1,7 +1,7 @@
 """Score-accumulation precision.
 
 The reference accumulates ensemble scores in double (``Score = double``,
-include/types.h:28-35; ensemble.cc:111-118).  The TPU-native equivalent is
+include/types.h:28-35; ensemble.cc:111-118).  The equivalent here is
 Kahan-compensated f32 (ops/scoring.py::kahan_add) — these tests quantify the
 uncompensated 1000-tree drift against an f64 oracle and assert the
 compensated paths hold it below metric noise (and that XLA does not optimize

@@ -192,117 +192,13 @@ def test_feature_sampling_runs(small_problem):
     assert int(tree.n_nodes) > 1
 
 
-def test_bin_pad_lane_tiling():
-    """The packed bin pad must (a) cover num_bins and (b) make every
-    G-feature column group span whole 128-lane tiles — the r5 layout that
-    prices 63 bins as 64 instead of 128 (ops/pallas_histogram.py)."""
-    from quickrank_tpu.ops.pallas_histogram import LANES, _bin_pad
-
-    assert _bin_pad(63, 32) == 64
-    assert _bin_pad(63, 64) == 64
-    assert _bin_pad(31, 64) == 32
-    assert _bin_pad(255, 32) == 256
-    assert _bin_pad(17, 4) == 32
-    for g in (4, 8, 16, 32, 64, 128):
-        for b in (2, 17, 31, 63, 64, 96, 127, 255, 300):
-            bp = _bin_pad(b, g)
-            assert bp >= b
-            assert (g * bp) % LANES == 0, (g, b, bp)
-
-
-def test_pallas_histogram_matches_scatter(small_problem):
-    """MXU histogram kernel (interpret mode on CPU) must match the
-    scatter-add reference."""
-    from quickrank_tpu.ops.histogram import masked_histogram_scatter
-    from quickrank_tpu.ops import pallas_histogram as ph
-
-    X, y = small_problem
-    b = bin_dataset(X, nthresholds=16)
-    mask = np.zeros(X.shape[0], bool)
-    mask[::2] = True
-    chan = doc_channels(jnp.asarray(y), jnp.asarray(mask))
-    ref = np.asarray(
-        masked_histogram_scatter(
-            jnp.asarray(b.binned), chan, jnp.asarray(mask), b.num_bins
-        )
-    )
-    # run the pallas kernel in interpreter mode on CPU
-    got = np.asarray(
-        _hist_interpret(
-            jnp.asarray(b.binned),
-            jnp.where(jnp.asarray(mask)[:, None], chan, 0.0),
-            b.num_bins,
-        )
-    )
-    np.testing.assert_allclose(ref[..., 0], got[..., 0], atol=1e-5)
-    np.testing.assert_allclose(ref[..., 1], got[..., 1], rtol=2e-4, atol=1e-4)
-
-
-def _hist_interpret(binned, values, num_bins):
-    """histogram_pallas in interpret mode (CPU test path).
-
-    feat_group=4 makes the wrapper's packed bin pad sub-128 here
-    (Bp = round_up(num_bins, 32)), so the lane-sharing layout the TPU
-    uses at <=64 production bins is exercised by this CPU test."""
-    from quickrank_tpu.ops import pallas_histogram as ph
-
-    return ph.histogram_pallas(
-        binned, values, num_bins, tile_n=128, feat_group=4, interpret=True
-    )
-
-
-@pytest.mark.parametrize("onehot", ["repeat", "bcast"])
-def test_node_pallas_histogram_matches_scatter(small_problem, onehot):
-    """The packed per-node MXU kernel (node selection in VMEM, channel-major
-    [C+1, N] operand — interpret mode on CPU) must match the scatter-add
-    node_histograms path over every (node, feature, bin, channel) cell,
-    for both one-hot builds (tile-repeat interleaved / per-feature
-    broadcast)."""
-    from quickrank_tpu.ops import pallas_histogram as ph
-    from quickrank_tpu.ops.histogram import doc_channels, node_histograms_scatter
-
-    X, y = small_problem
-    b = bin_dataset(X, nthresholds=16)
-    N = X.shape[0]
-    rng = np.random.default_rng(5)
-    mask = jnp.asarray(rng.uniform(size=N) < 0.8)
-    node = jnp.asarray(rng.integers(0, 4, size=N).astype(np.int32))
-    chan = doc_channels(jnp.asarray(y), mask)
-    C = chan.shape[-1]
-    num_bins = b.num_bins
-    ref = np.asarray(
-        node_histograms_scatter(
-            jnp.asarray(b.binned), chan, node, mask, 4, num_bins
-        )
-    )
-
-    # the real wrapper in interpret mode (feat_group=4 -> sub-128 bin pad
-    # on the "repeat" layout, Bp=round_up(num_bins, 32))
-    k = 4
-    binned = jnp.asarray(b.binned)
-    vt = jnp.where(mask[:, None], chan, 0.0).T
-    F = binned.shape[1]
-    h = ph.node_histogram_pallas(
-        binned, vt, node, num_bins, 0, k,
-        tile_n=128, feat_group=4, onehot=onehot, interpret=True,
-    )  # [F, B, k*C]
-    got = np.asarray(
-        jnp.moveaxis(h.reshape(F, num_bins, k, C), 2, 0)
-    )
-    # pad docs carry node id 0 but zero values — they must not perturb node 0
-    np.testing.assert_allclose(ref[..., 0], got[..., 0], atol=1e-5)
-    np.testing.assert_allclose(ref[..., 1], got[..., 1], rtol=2e-4, atol=1e-4)
-
-
 def test_histogram_oob_bin_dropped_consistently(small_problem):
     """bin id == num_bins (a feature value past the FLT_MAX sentinel,
-    e.g. +inf) must be DROPPED per (doc, feature) element by EVERY
-    histogram implementation: the Pallas one-hot drops it structurally
-    (no column matches), masked_histogram_scatter routes it to the trash
-    bin — and r5 fixed node_histograms_scatter, which used to clamp it
-    into the top bin, diverging CPU trees from TPU trees on such data."""
-    from quickrank_tpu.ops import pallas_histogram as ph
-    from quickrank_tpu.ops.histogram import doc_channels, node_histograms_scatter
+    e.g. +inf) must be DROPPED per (doc, feature) element by every
+    histogram route — the node passes and the masked (best-first) pass —
+    never clamped into the top bin (which would diverge trees between the
+    CPU scatter and the GPU kernel, whose bin test drops it)."""
+    from quickrank_tpu.ops.histogram import doc_channels, node_histograms
 
     X, y = small_problem
     b = bin_dataset(X, nthresholds=16)
@@ -317,35 +213,23 @@ def test_histogram_oob_bin_dropped_consistently(small_problem):
     node = jnp.asarray(rng.integers(0, 2, size=N).astype(np.int32))
     chan = doc_channels(jnp.asarray(y), mask)
 
-    scatter = np.asarray(
-        node_histograms_scatter(binned, chan, node, mask, 2, num_bins)
-    )
-    vt = chan.T
-    h = ph.node_histogram_pallas(
-        binned.astype(jnp.int32), vt, node, num_bins, 0, 2,
-        tile_n=128, feat_group=4, interpret=True,
-    )
-    C = chan.shape[-1]
-    pallas = np.asarray(
-        jnp.moveaxis(h.reshape(binned.shape[1], num_bins, 2, C), 2, 0)
-    )
-    np.testing.assert_allclose(scatter, pallas, rtol=2e-4, atol=1e-4)
+    hist = np.asarray(node_histograms(binned, chan, node, mask, 2, num_bins))
     # the dropped elements really are gone: per-feature count equals the
     # number of in-range docs for that feature
-    counts = scatter[..., 0].sum(axis=(0, 2))  # [F]
+    counts = hist[..., 0].sum(axis=(0, 2))  # [F]
     expect = (np.asarray(binned) < num_bins).sum(axis=0)
     np.testing.assert_allclose(counts, expect, atol=1e-4)
+    # the masked pass (node 0 = everyone) drops the same elements
+    whole = np.asarray(masked_histogram(binned, chan, mask, num_bins))
+    np.testing.assert_allclose(whole, hist.sum(axis=0), rtol=1e-5, atol=1e-5)
 
 
-def test_masked_histogram_t_mask_as_node(small_problem):
-    """masked_histogram_t's TPU formula — the subset mask folded in as a
-    two-node pos row (in-mask docs -> node 0, rest -> node 1), k=1 on the
-    packed node kernel (interpret mode on CPU) — must equal the
-    masked_histogram scatter reference for the same subset."""
-    from quickrank_tpu.ops import pallas_histogram as ph
-    from quickrank_tpu.ops.histogram import (
-        doc_channels, masked_histogram_scatter, masked_histogram_t,
-    )
+def test_masked_histogram_mask_as_node(small_problem):
+    """masked_histogram folds the subset mask in as a node id (in-mask docs
+    -> node 0, the rest -> -1, outside every pass) — it must equal the
+    node pass over the same rows restricted by hand, for a subset that
+    leaves whole doc runs empty."""
+    from quickrank_tpu.ops.histogram import histogram_pass_xla
 
     X, y = small_problem
     b = bin_dataset(X, nthresholds=16)
@@ -353,34 +237,21 @@ def test_masked_histogram_t_mask_as_node(small_problem):
     rng = np.random.default_rng(11)
     doc_mask = jnp.asarray(rng.uniform(size=N) < 0.9)
     sub = rng.uniform(size=N) < 0.5
-    sub[128:256] = False  # tile 1 (tile_n=128) has NO subset docs: the
-    # kernel's data-dependent skip must leave the result exact
+    sub[128:256] = False  # a long run of docs outside the subset
     subset = jnp.asarray(sub) & doc_mask
     chan = doc_channels(jnp.asarray(y), doc_mask)
-    chan_t = jnp.where(doc_mask[None, :], chan.T, 0.0)
-    C = chan.shape[-1]
     num_bins = b.num_bins
+    sel = np.asarray(subset)
     ref = np.asarray(
-        masked_histogram_scatter(jnp.asarray(b.binned), chan, subset, num_bins)
-    )
-
-    # CPU dispatch of the public helper is the scatter path — exact match
-    got_cpu = np.asarray(
-        masked_histogram_t(jnp.asarray(b.binned), chan_t, subset, num_bins)
-    )
-    np.testing.assert_allclose(ref, got_cpu, rtol=1e-6, atol=1e-6)
-
-    # the TPU branch's exact construction, wrapper in interpret mode
-    pos = jnp.where(subset, 0, 1).astype(jnp.int32)
-    binned = jnp.asarray(b.binned)
-    got = np.asarray(
-        ph.node_histogram_pallas(
-            binned, chan_t, pos, num_bins, 0, 1,
-            tile_n=128, feat_group=4, interpret=True,
+        histogram_pass_xla(
+            jnp.asarray(b.binned[sel]), chan[sel], jnp.zeros(int(sel.sum()), jnp.int32),
+            0, 1, num_bins,
         )
+    )[0]
+    got = np.asarray(
+        masked_histogram(jnp.asarray(b.binned), chan, subset, num_bins)
     )
-    np.testing.assert_allclose(ref[..., 0], got[..., 0], atol=1e-5)
-    np.testing.assert_allclose(ref[..., 1], got[..., 1], rtol=2e-4, atol=1e-4)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_collapse_leaves_factor(small_problem):
@@ -493,17 +364,11 @@ def test_levelwise_leaf_values_match_leaf_outputs(small_problem, newton):
 
 
 def test_tree_delta_binned_bitwise_matches_gather(small_problem):
-    """The gather-free scoring delta (matmul descent + one-hot leaf read,
-    ops/scoring.py::tree_delta_binned) is BITWISE the gather path
-    ``leaf_value[descend_tree_binned(...)]`` — the contract that let every
-    rescoring site (Mart valid update, DART dropped-set/full rescore)
-    switch without tolerance: one-hot products of {0,1} f32 weights are
-    exact, and integer bin compares are exact in bf16/f32."""
-    from quickrank_tpu.ops.scoring import (
-        descend_tree_binned_matmul,
-        leaf_values_onehot,
-        tree_delta_binned,
-    )
+    """The scoring delta (ops/scoring.py::tree_delta_binned, every
+    rescoring site: Mart valid update, DART dropped-set/full rescore) is
+    BITWISE ``leaf_value[descend_tree_binned(...)]``, and leaf_values
+    clamps negative node ids to the root like the reference's guard."""
+    from quickrank_tpu.ops.scoring import leaf_values, tree_delta_binned
 
     X, y = small_problem
     b, cfg, tree, node = _fit(X, y, nleaves=8)
@@ -511,79 +376,30 @@ def test_tree_delta_binned_bitwise_matches_gather(small_problem):
     ref_node = np.asarray(descend_tree_binned(binned, tree, cfg.nleaves))
     ref = np.asarray(tree.leaf_value)[ref_node]
     np.testing.assert_array_equal(
-        np.asarray(descend_tree_binned_matmul(binned, tree, cfg.nleaves)),
-        ref_node,
-    )
-    np.testing.assert_array_equal(
         np.asarray(tree_delta_binned(binned, tree, cfg.nleaves)), ref
     )
-    # leaf read alone, incl. the negative-id clamp semantics (on CPU
-    # leaf_values_onehot dispatches to the gather, so pin the one-hot
-    # form itself too)
-    from quickrank_tpu.ops.scoring import _onehot_read
-
     node_neg = jnp.asarray(ref_node).at[0].set(-1)
     expect = np.asarray(tree.leaf_value)[np.maximum(np.asarray(node_neg), 0)]
     np.testing.assert_array_equal(
-        np.asarray(leaf_values_onehot(node_neg, tree)), expect
-    )
-    ids = jnp.arange(tree.max_nodes)
-    own = (jnp.maximum(node_neg, 0)[:, None] == ids[None, :]).astype(
-        jnp.float32
-    )
-    np.testing.assert_array_equal(
-        np.asarray(_onehot_read(own, tree.leaf_value)), expect
+        np.asarray(leaf_values(node_neg, tree)), expect
     )
 
 
-def test_descend_tree_matmul_bitwise_value_space(small_problem):
-    """Value-space matmul descent (the TPU path for models too deep for
-    the perfect embedding) routes bitwise like the gather descent: the
-    one-hot column-select dot returns the original f32 feature exactly
-    (one nonzero product per row; x*1.0 exact under bf16-pass
-    decompositions), so f32 threshold compares are unchanged."""
-    from quickrank_tpu.ops.scoring import descend_tree_matmul
-
+@pytest.mark.parametrize("wire", [np.uint8, np.uint16])
+def test_descend_tree_binned_wire_dtypes(small_problem, wire):
+    """Bin-space descent routes the u8 wire (<= 256 bins, the default
+    StepData.binned) and the u16 wire (> 256 bins) exactly like i32 bin
+    ids — the bin compare is integer-exact for every storage dtype."""
     X, y = small_problem
-    b, cfg, tree, node = _fit(X, y, nleaves=8)
-    Xj = jnp.asarray(X)
-    np.testing.assert_array_equal(
-        np.asarray(descend_tree_matmul(Xj, tree, cfg.nleaves)),
-        np.asarray(descend_tree(Xj, tree, cfg.nleaves)),
+    nthr = 32 if wire == np.uint8 else 1000
+    b, cfg, tree, node = _fit(X, y, nleaves=8, nthresholds=nthr)
+    assert (b.num_bins <= 256) == (wire == np.uint8)
+    ref = np.asarray(descend_tree_binned(jnp.asarray(b.binned), tree, cfg.nleaves))
+    got = descend_tree_binned(
+        jnp.asarray(np.asarray(b.binned).astype(wire)), tree, cfg.nleaves
     )
-
-
-def test_descend_tree_binned_matmul_u8_wire(small_problem):
-    """u8 wire data (StepData.binned whenever num_bins <= 256 — the
-    default-config hot path of DART deltas and binned rescores) takes the
-    single-pass bf16 dot and routes bitwise like the gather descent (bin
-    ids <= 255 and threshold_bins < 256 are exact bf16 integers).  Pinned
-    so the branch can't be 'dead-code'-removed again (r5)."""
-    from quickrank_tpu.ops.scoring import descend_tree_binned_matmul
-
-    X, y = small_problem
-    b, cfg, tree, node = _fit(X, y, nleaves=8)
-    assert b.num_bins <= 256
-    binned = jnp.asarray(np.asarray(b.binned).astype(np.uint8))
-    np.testing.assert_array_equal(
-        np.asarray(descend_tree_binned_matmul(binned, tree, cfg.nleaves)),
-        np.asarray(descend_tree_binned(binned, tree, cfg.nleaves)),
-    )
-
-
-def test_descend_tree_binned_matmul_u16_bins(small_problem):
-    """Wide-bin (u16 wire, >256 bins) descent takes the f32/HIGHEST dot
-    and still routes bitwise (bf16 would corrupt bin ids > 256)."""
-    from quickrank_tpu.ops.scoring import descend_tree_binned_matmul
-
-    X, y = small_problem
-    b, cfg, tree, node = _fit(X, y, nleaves=8, nthresholds=1000)
-    assert b.num_bins > 256
-    binned = jnp.asarray(np.asarray(b.binned).astype(np.uint16))
-    np.testing.assert_array_equal(
-        np.asarray(descend_tree_binned_matmul(binned, tree, cfg.nleaves)),
-        np.asarray(descend_tree_binned(binned, tree, cfg.nleaves)),
-    )
+    np.testing.assert_array_equal(np.asarray(got), ref)
+    np.testing.assert_array_equal(ref, node)
 
 
 def test_tree_delta_binned_feature_sharded(small_problem):
